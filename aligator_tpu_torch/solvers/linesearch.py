@@ -1,0 +1,121 @@
+"""Step acceptance: backtracking Armijo with safeguarded interpolation, and
+its nonmonotone (Zhang-Hager) use through ``phi_ref`` (port of part of
+``aligator_tpu.solvers.linesearch``; the filter strategy waits in ROADMAP
+queue A).
+
+Batched: α, φ and every payload leaf carry a leading batch axis. The JAX
+``lax.while_loop`` under ``jax.vmap`` runs until every element is done,
+freezing each finished element by a select; this loop does exactly that
+with ``tree_where``. A non-finite merit fails the acceptance test and the
+backtracking continues.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable, Optional, Tuple
+
+import torch
+
+from aligator_tpu_torch.utils.tree import tree_where
+
+
+@dataclasses.dataclass(frozen=True)
+class LinesearchOptions:
+    armijo_c1: float = 1e-4
+    alpha_min: float = 1e-6
+    max_num_steps: int = 25
+    contraction_min: float = 0.5
+    contraction_max: float = 0.8
+    interp_type: str = "cubic"  # "bisection" | "quadratic" | "cubic"
+    beta_dec: float = 0.5
+
+
+def _interp_next_alpha(opts, alpha, phi_a, prev_alpha, prev_phi, prev_valid,
+                       phi0, dphi0):
+    """Safeguarded interpolation step: the minimizer of a quadratic through
+    (φ0, φ'0, φ(α)) or a cubic adding the previous sample, clamped to
+    [c_min·α, c_max·α]; NaN → c_min·α. All arguments are (B,)."""
+    lo = opts.contraction_min * alpha
+    hi = opts.contraction_max * alpha
+    if opts.interp_type == "bisection":
+        return opts.beta_dec * alpha
+
+    qa = (phi_a - phi0 - alpha * dphi0) / (alpha * alpha)
+    a_quad = -dphi0 / (2.0 * qa)
+    quad_eval = lambda a: qa * a * a + dphi0 * a + phi0
+
+    if opts.interp_type == "quadratic":
+        use_cubic = torch.zeros_like(prev_valid)
+    else:
+        use_cubic = prev_valid & ((prev_alpha - alpha).abs() > 1e-14)
+
+    a0, a1 = alpha, prev_alpha
+    r0 = phi_a - phi0 - dphi0 * a0
+    r1 = prev_phi - phi0 - dphi0 * a1
+    det = a0 * a0 * a1 * a1 * (a0 - a1)
+    det_safe = torch.where(det.abs() < 1e-30, torch.ones_like(det), det)
+    c3 = (r0 * a1 * a1 - r1 * a0 * a0) / det_safe
+    c2 = (r1 * a0 * a0 * a0 - r0 * a1 * a1 * a1) / det_safe
+    disc = c2 * c2 - 3.0 * c3 * dphi0
+    c3_safe = torch.where(c3.abs() < 1e-30, torch.ones_like(c3), c3)
+    a_cubic = (-c2 + torch.sqrt(torch.clamp(disc, min=0.0))) / (3.0 * c3_safe)
+    cubic_ok = (det.abs() >= 1e-30) & (c3.abs() >= 1e-30) & (disc >= 0.0)
+    cubic_eval = lambda a: ((c3 * a + c2) * a + dphi0) * a + phi0
+
+    use_cubic = use_cubic & cubic_ok
+    anext = torch.where(use_cubic, a_cubic, a_quad)
+    poly_eval = lambda a: torch.where(use_cubic, cubic_eval(a), quad_eval(a))
+    outside = (anext > hi) | (anext < lo)
+    edge = torch.where(poly_eval(lo) < poly_eval(hi), lo, hi)
+    anext = torch.where(outside, edge, anext)
+    return torch.where(torch.isfinite(anext), anext, opts.contraction_min * alpha)
+
+
+def armijo_run(
+    phi_eval: Callable[[torch.Tensor], Tuple[torch.Tensor, object]],
+    phi0: torch.Tensor,
+    dphi0: torch.Tensor,
+    opts: LinesearchOptions,
+    phi_ref: Optional[torch.Tensor] = None,
+):
+    """Backtracking Armijo with safeguarded interpolation over a batch.
+
+    ``phi_eval(alpha (B,)) -> (phi (B,), payload)``; a non-finite φ rejects
+    the trial. ``phi_ref`` overrides the acceptance reference (the
+    Zhang-Hager average for the nonmonotone variant). Returns
+    ``(alpha, phi, payload)`` of the accepted (or last) trial per element.
+    """
+    if phi_ref is None:
+        phi_ref = phi0
+    one = torch.ones_like(phi0)
+    phi1, payload1 = phi_eval(one)
+    ok1 = torch.isfinite(phi1) & (phi1 - phi_ref <= opts.armijo_c1 * one * dphi0)
+    c = dict(alpha=one, phi=phi1, payload=payload1, prev_alpha=one, prev_phi=phi1,
+             prev_valid=torch.zeros_like(ok1), done=ok1,
+             cnt=torch.zeros_like(phi0, dtype=torch.int32))
+    while True:
+        active = (~c["done"]) & (c["cnt"] < opts.max_num_steps)
+        if not bool(active.any()):
+            break
+        alpha_n = _interp_next_alpha(
+            opts, c["alpha"], c["phi"], c["prev_alpha"], c["prev_phi"],
+            c["prev_valid"], phi0, dphi0,
+        )
+        alpha_n = torch.clamp(alpha_n, min=opts.alpha_min)
+        phi_n, payload_n = phi_eval(alpha_n)
+        ok = torch.isfinite(phi_n) & (phi_n - phi_ref <= opts.armijo_c1 * alpha_n * dphi0)
+        # a non-finite trial is no interpolation sample: keep the previous one
+        finite = torch.isfinite(phi_n)
+        new = dict(
+            alpha=alpha_n,
+            phi=torch.where(finite, phi_n, c["phi"]),
+            payload=tree_where(finite, payload_n, c["payload"]),
+            prev_alpha=torch.where(finite, c["alpha"], c["prev_alpha"]),
+            prev_phi=torch.where(finite, c["phi"], c["prev_phi"]),
+            prev_valid=c["prev_valid"] | finite,
+            done=ok | (alpha_n <= opts.alpha_min),
+            cnt=c["cnt"] + 1,
+        )
+        c = tree_where(active, new, c)
+    return c["alpha"], c["phi"], c["payload"]

@@ -1,0 +1,404 @@
+"""GPU smoke run of the PyTorch/CUDA port (``aligator_tpu_torch``).
+
+Run from the root of the repository on a machine with one CUDA card:
+
+    python3 chip_smoke.py
+
+It builds the hand-written kernels from ``aligator_tpu_torch/csrc`` (nvcc,
+sm_90a, into ``build/kernels``), holds each kernel against its plain
+torch version on the card, drives the main path — the batched ProxDDP
+solve of the lqr56 box-constrained LQR (B = 256, N = 100, 2 iterations,
+float32) and three MPC steps — through the kernels, checks the results,
+and prints one JSON line per kernel report and a final status line. Any
+failed check raises, and the script exits non-zero; without a CUDA device
+it exits non-zero before doing anything.
+"""
+
+from __future__ import annotations
+
+import json
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+from aligator_tpu_torch.convert import lqr_from_numpy, problem_from_numpy
+from aligator_tpu_torch.gar import fused_riccati as FR
+from aligator_tpu_torch.gar.riccati import knots_of
+from aligator_tpu_torch.gar.utils import lqr_kkt_error
+from aligator_tpu_torch.mpc import init_mpc_state, mpc_step
+from aligator_tpu_torch.solvers.proxddp import ProxDDPSettings, solve
+from aligator_tpu_torch.utils import cuda_build
+from aligator_tpu_torch.utils.device import full_f32_matmuls
+
+# lqr56: Talos-reduced widths of the flagship bench (bench.py:44-48)
+NX, NU, NSTEPS, SOLVER_ITERS = 56, 22, 100, 2
+BATCH, MPC_BATCH, MPC_STEPS = 256, 64, 3
+# published H100 SXM peaks (NVIDIA data sheet): HBM3 bandwidth and the
+# float32 rate outside the tensor cores (the kernels use plain FMA)
+HBM_BYTES_PER_S = 3.35e12
+F32_FLOP_PER_S = 67e12
+
+
+def lqr_bench_arrays(nx: int = NX, nu: int = NU, seed: int = 0) -> dict:
+    """The bench's box-constrained LQR (bench.py:61-82) as numpy arrays:
+    A = I + 0.05·randn/√nx, B = randn/√nx, c = 0.01·randn, Q = R = 0.01·I,
+    Qf = I, |u| ≤ 0.5, x0 = 0.1·randn."""
+    rng = np.random.default_rng(seed)
+    A = np.eye(nx) + 0.05 * rng.standard_normal((nx, nx)) / np.sqrt(nx)
+    B = rng.standard_normal((nx, nu)) / np.sqrt(nx)
+    c = 0.01 * rng.standard_normal(nx)
+    x0 = 0.1 * rng.standard_normal(nx)
+    return dict(A=A, B=B, c=c, Q=0.01 * np.eye(nx), R=0.01 * np.eye(nu),
+                Qf=np.eye(nx), x0=x0, lower=np.full(nu, -0.5),
+                upper=np.full(nu, 0.5))
+
+
+def batch_x0(batch: int, nx: int = NX, seed: int = 1) -> np.ndarray:
+    """The bench's batch of initial states (bench.py:108-109)."""
+    return 0.1 * np.random.default_rng(seed).standard_normal((batch, nx))
+
+
+def random_lq_arrays(rng, batch, N, nx, nu, nc) -> dict:
+    """A batch of well-posed random constrained LQ problems (the shape of
+    gar.random_lqr_problem with strict constraints; A = I + small noise so
+    the cost-to-go stays bounded over long horizons). The unused terminal
+    A, B, f are NaN: the kernels must never read them."""
+    L = N + 1
+
+    def spd(n):
+        w = rng.standard_normal((batch, L, n, n))
+        return w @ np.swapaxes(w, -1, -2) / n + np.eye(n)
+
+    Q, R = spd(nx), spd(nu)
+    S = 0.1 * rng.standard_normal((batch, L, nx, nu))
+    A = np.eye(nx) + 0.05 * rng.standard_normal((batch, L, nx, nx)) / np.sqrt(nx)
+    B = rng.standard_normal((batch, L, nx, nu)) / np.sqrt(nx)
+    C = 0.5 * rng.standard_normal((batch, L, nc, nx))
+    D = np.eye(nc, nu) + 0.1 * rng.standard_normal((batch, L, nc, nu))
+    d = 0.1 * rng.standard_normal((batch, L, nc))
+    C[:, 0] = D[:, 0] = d[:, 0] = C[:, N] = d[:, N] = 0.0
+    R[:, N], S[:, N], D[:, N] = np.eye(nu), 0.0, 0.0
+    r = rng.standard_normal((batch, L, nu))
+    r[:, N] = 0.0
+    A[:, N] = B[:, N] = np.nan
+    f = 0.1 * rng.standard_normal((batch, L, nx))
+    f[:, N] = np.nan
+    z = lambda *s: np.zeros((batch,) + s)
+    return dict(Q=Q, S=S, R=R, q=rng.standard_normal((batch, L, nx)), r=r, A=A,
+                B=B, f=f, C=C, D=D, d=d, Gx=z(L, nx, 0), Gu=z(L, nu, 0),
+                Gth=z(L, 0, 0), gamma=z(L, 0), G0=-np.tile(np.eye(nx), (batch, 1, 1)),
+                g0=rng.standard_normal((batch, nx)))
+
+
+def cuda_ms(fn, reps: int) -> float:
+    """Mean milliseconds per call of ``fn`` on the card (CUDA events, after
+    one warm-up call)."""
+    fn()
+    torch.cuda.synchronize()
+    e0, e1 = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    e0.record()
+    for _ in range(reps):
+        fn()
+    e1.record()
+    torch.cuda.synchronize()
+    return e0.elapsed_time(e1) / reps
+
+
+def max_err(a, b) -> float:
+    return float((a - b).abs().max()) if a.numel() else 0.0
+
+
+def backward_cost(B, L, nx, nu, nc, refine):
+    """(bytes, flops) the backward sweep needs: every knot field read once,
+    every output written once; the arithmetic of the kernel per knot (the
+    terminal knot skips the A/B products)."""
+    m = nx + 1
+    knot_in = nx * nx * 2 + nx * nu * 2 + nu * nu + nc * nx + nc * nu + 2 * nx + nu + nc
+    knot_out = nu * nx + nc * nx + 2 * nx * nx + nu + nc + 2 * nx
+    solve = 2 * nu * nu * m + 4 * nu * nc * m + 2 * nc * nc * m
+    kkt = (nu ** 3 / 3 + 2 * nu * nu * nc + 2 * nc * nc * nu + nc ** 3 / 3
+           + (1 + refine) * solve + refine * (2 * nu * nu + 4 * nu * nc) * m)
+    hats = (2 * nx * nx + 4 * nx ** 3 + 4 * nu * nx * nx + 2 * nx * nu * nu
+            + 2 * nx * nx + 2 * nx * nu)
+    out = 2 * nx * nu * m + 2 * nx * (nu + nc) * m
+    flops = B * (L * (kkt + out) + (L - 1) * hats)
+    return 4.0 * B * (L * (knot_in + knot_out) + 1), flops
+
+
+def forward_cost(B, L, nx, nu, nc):
+    knot_in = nu * nx + nc * nx + 2 * nx * nx + nu + nc + 2 * nx
+    knot_out = 2 * nx + nu + nc
+    return 4.0 * B * (L * (knot_in + knot_out) + 2 * nx), 2.0 * B * L * (nu + nc + 2 * nx) * nx
+
+
+def bound_ms(nbytes, flops):
+    t_b, t_f = nbytes / HBM_BYTES_PER_S * 1e3, flops / F32_FLOP_PER_S * 1e3
+    return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
+
+
+def check(ok: bool, what: str) -> None:
+    if not ok:
+        raise RuntimeError(f"check failed: {what}")
+
+
+def kernels_phase(dev):
+    """K1 and K2 against their plain versions on the card. Returns the
+    per-kernel report at the bench widths."""
+    rng = np.random.default_rng(0)
+    gen = torch.Generator(device=dev).manual_seed(0)
+    # (B, N, nx, nu, nc, tolerance mode): the small cases carry test_gar_pallas.py's
+    # float32 tolerances (gains 2e-4, Vxx 1e-3, xs 1e-3), as absolute
+    # errors; at the bench widths (N = 100, entries of Vxx up to ~1e3) the
+    # same float32 rounding accumulates over 100 steps, so the bound is
+    # relative to the largest entry of each output: 1e-4·max|·| (~840 ulp).
+    cases = [(4, 9, 7, 3, 2, "abs"), (4, 9, 7, 3, 0, "abs"),
+             (BATCH, NSTEPS, NX, NU, NU, "rel")]
+    reports = []
+    for Bsz, N, nx, nu, nc, mode in cases:
+        lq = lqr_from_numpy(random_lq_arrays(rng, Bsz, N, nx, nu, nc), device=dev,
+                            dtype=torch.float32)
+        knots = knots_of(lq)
+        mu = torch.full((Bsz,), 1e-2, device=dev)
+        gk, vk = FR.backward_sweep_batched(knots, mu)
+        torch.cuda.synchronize()
+        gp, vp = FR.backward_sweep_batched_ref(knots, mu)
+        x0 = torch.randn(Bsz, nx, device=dev, generator=gen)
+        l0 = torch.randn(Bsz, nx, device=dev, generator=gen)
+        fk = FR.forward_sweep_batched(gp, vp, x0, l0)
+        torch.cuda.synchronize()
+        fp = FR.forward_sweep_batched_ref(gp, vp, x0, l0)
+
+        def tol(ref, atol):
+            scale = float(ref.abs().max()) if ref.numel() else 0.0
+            return atol if mode == "abs" else 1e-4 * max(scale, 1.0)
+
+        errs_b, errs_f = {}, {}
+        for name, atol in (("kff", 2e-4), ("zff", 2e-4), ("yff", 2e-4), ("K", 2e-4),
+                           ("Z", 2e-4), ("Acl", 2e-4)):
+            a, b = getattr(gk, name), getattr(gp, name)
+            errs_b[name] = max_err(a, b)
+            check(errs_b[name] <= tol(b, atol), f"K1 {name} B={Bsz} nc={nc}: {errs_b[name]}")
+        for name in ("Vxx", "vx"):
+            a, b = getattr(vk, name), getattr(vp, name)
+            errs_b[name] = max_err(a, b)
+            check(errs_b[name] <= tol(b, 1e-3), f"K1 {name} B={Bsz} nc={nc}: {errs_b[name]}")
+        for name, a, b in zip(("xs", "us", "vs", "lbds"), fk, fp):
+            errs_f[name] = max_err(a, b)
+            check(errs_f[name] <= tol(b, 1e-3), f"K2 {name} B={Bsz} nc={nc}: {errs_f[name]}")
+        print(f"kernels B={Bsz} N={N} nx={nx} nu={nu} nc={nc}: K1 max abs err "
+              f"{json.dumps(errs_b)}; K2 max abs err {json.dumps(errs_f)}")
+        reports.append(dict(lq=lq, knots=knots, mu=mu, gp=gp, vp=vp, x0=x0, l0=l0,
+                      err_b=max(errs_b.values()), err_f=max(errs_f.values()),
+                      dims=(Bsz, N + 1, nx, nu, nc)))
+
+    # KKT residual of the fused solve on the first small problem, at
+    # test_gar_pallas.py's float32 gate (5e-4)
+    lq, mu = reports[0]["lq"], reports[0]["mu"]
+    xs, us, vs, lbds, _ = FR.solve(lq, mu)
+    kkt = float(lqr_kkt_error(lq, xs, us, vs, lbds, mu)["max"].max())
+    print(f"fused solve KKT residual max {kkt:.3e}")
+    check(kkt < 5e-4, "fused solve KKT residual")
+    report = reports[-1]
+
+    # times at the bench widths: kernel vs plain version on the same inputs
+    kn, mu, gp, vp, x0, l0 = (report[k] for k in ("knots", "mu", "gp", "vp", "x0", "l0"))
+    k1_ms = cuda_ms(lambda: FR.backward_sweep_batched(kn, mu), 10)
+    k1_plain = cuda_ms(lambda: FR.backward_sweep_batched_ref(kn, mu), 2)
+    k2_ms = cuda_ms(lambda: FR.forward_sweep_batched(gp, vp, x0, l0), 20)
+    k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
+    Bsz, L, nx, nu, nc = report["dims"]
+    b1, by1 = bound_ms(*backward_cost(Bsz, L, nx, nu, nc, 1))
+    b2, by2 = bound_ms(*forward_cost(Bsz, L, nx, nu, nc))
+    print(f"bench widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, "
+          f"bound {b1:.4f} ms by {by1}); K2 {k2_ms:.4f} ms (plain {k2_plain:.3f} ms, "
+          f"bound {b2:.4f} ms by {by2})")
+    return [
+        dict(name="riccati_backward", route="cuda",
+             source="aligator_tpu_torch/csrc/riccati_backward.cu",
+             replaces="aligator_tpu/gar/pallas_riccati.py:225",
+             max_abs_err=report["err_b"], ms=k1_ms, plain_ms=k1_plain,
+             bound_ms=b1, bound_by=by1, library_ms=None),
+        dict(name="riccati_forward", route="cuda",
+             source="aligator_tpu_torch/csrc/riccati_forward.cu",
+             replaces="aligator_tpu/gar/pallas_riccati.py:549",
+             max_abs_err=report["err_f"], ms=k2_ms, plain_ms=k2_plain,
+             bound_ms=b2, bound_by=by2, library_ms=None),
+    ]
+
+
+def bench_settings(lq_solver: str, **kw) -> ProxDDPSettings:
+    """bench.py:103-107: fixed 2-iteration batched solves."""
+    base = dict(tol=1e-7, mu_init=1e-2, max_iters=SOLVER_ITERS,
+                max_al_iters=SOLVER_ITERS, lq_solver=lq_solver)
+    base.update(kw)
+    return ProxDDPSettings(**base)
+
+
+def reset_counts():
+    FR.backward_sweep_batched.launches = 0
+    FR.forward_sweep_batched.launches = 0
+
+
+def read_counts():
+    return FR.backward_sweep_batched.launches, FR.forward_sweep_batched.launches
+
+
+def slice_phase(dev):
+    """The main path: lqr56 / N = 100 / B = 256, two ProxDDP iterations
+    through the kernels, against the serial torch path on the card."""
+    arr = lqr_bench_arrays()
+    x0s = batch_x0(BATCH)
+    problem = problem_from_numpy(
+        arr["A"], arr["B"], arr["c"], arr["Q"], arr["R"], arr["Qf"], x0s, NSTEPS,
+        arr["lower"], arr["upper"], device=dev, dtype=torch.float32)
+
+    reset_counts()
+    res = solve(problem, bench_settings("pallas"))
+    torch.cuda.synchronize()
+    launches = read_counts()
+    n_iters = int(res.num_iters.max())
+    print(f"slice: launches K1={launches[0]} K2={launches[1]}, iterations "
+          f"max {n_iters}, prim_infeas max {float(res.prim_infeas.max()):.3e}")
+    check(launches[0] == launches[1] >= n_iters >= 1, "kernel launch counts")
+    check(tuple(res.xs.shape) == (BATCH, NSTEPS + 1, NX)
+          and bool(torch.isfinite(res.xs).all()) and bool(torch.isfinite(res.us).all()),
+          "slice outputs finite, of the expected shape")
+
+    res_s = solve(problem, bench_settings("serial"))
+    torch.cuda.synchronize()
+    dx, du = max_err(res.xs, res_s.xs), max_err(res.us, res_s.us)
+    print(f"slice: fused vs serial on the card: max|dxs| {dx:.3e} max|dus| {du:.3e}")
+    # float32, two Cholesky orders over N = 100 steps; |x| ~ 0.3, |u| ~ 0.5
+    check(dx < 1e-3 and du < 1e-3, "fused vs serial solve")
+    check(bool((res.num_iters == res_s.num_iters).all()), "iteration counts agree")
+
+    # host-clock rates of whole solves, in turns; the median of 3 each
+    rates = {}
+    for name in ("pallas", "serial") * 3:
+        t0 = time.perf_counter()
+        solve(problem, bench_settings(name))
+        torch.cuda.synchronize()
+        rates.setdefault(name, []).append(BATCH / (time.perf_counter() - t0))
+    print(f"slice: solves/s fused {rates['pallas']} (median "
+          f"{float(np.median(rates['pallas'])):.1f}), serial {rates['serial']} "
+          f"(median {float(np.median(rates['serial'])):.1f})")
+    profile_solve(problem)
+
+    # a small 2-iteration solve on the card against the CPU float64 solve
+    small = lqr_bench_arrays(8, 4, seed=0)
+    xs_small = batch_x0(4, 8)
+    build = lambda d, dt: problem_from_numpy(
+        small["A"], small["B"], small["c"], small["Q"], small["R"], small["Qf"],
+        xs_small, 10, small["lower"], small["upper"], device=d, dtype=dt)
+    r_gpu = solve(build(dev, torch.float32), bench_settings("pallas"))
+    r_cpu = solve(build("cpu", torch.float64), bench_settings("serial"))
+    ds = max_err(r_gpu.xs.double().cpu(), r_cpu.xs)
+    print(f"small solve card f32 vs CPU f64: max|dxs| {ds:.3e}")
+    check(ds < 1e-4, "small solve against the CPU float64 reference")
+    return launches
+
+
+def profile_solve(problem):
+    """Where the fused solve's time goes: one solve traced by
+    torch.profiler, the device's busy and idle share of its wall time, and
+    the kernels that took the most device time."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        solve(problem, bench_settings("pallas"))
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    # device-side events, without the record_function ranges mirrored there
+    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
+               and not getattr(e, "is_user_annotation", False)]
+    if not kernels:
+        print("profile: the profiler recorded no device time (not measured)")
+        return
+    # device busy time = the union of the kernels' intervals
+    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    busy, cur_s, cur_e = 0.0, *spans[0]
+    for a, b in spans[1:]:
+        if a > cur_e:
+            busy += cur_e - cur_s
+            cur_s, cur_e = a, b
+        else:
+            cur_e = max(cur_e, b)
+    busy += cur_e - cur_s
+    by_name = {}
+    for e in kernels:
+        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
+    print(f"profile: traced solve wall {wall_us / 1e3:.3f} ms, {len(kernels)} device "
+          f"kernels, sum of kernel times {sum(by_name.values()) / 1e3:.3f} ms, device "
+          f"busy (union) {busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}")
+    for name, us in top:
+        print(f"  {us / 1e3:9.3f} ms  {name[:90]}")
+
+
+def mpc_phase(dev):
+    arr = lqr_bench_arrays()
+    x0s = batch_x0(MPC_BATCH, seed=3)
+    problem = problem_from_numpy(
+        arr["A"], arr["B"], arr["c"], arr["Q"], arr["R"], arr["Qf"], x0s, NSTEPS,
+        arr["lower"], arr["upper"], device=dev, dtype=torch.float32)
+    # bench.py:449-452: the lqr56 MPC cycle settings
+    settings = bench_settings("pallas", tol=1e-5)
+    state = init_mpc_state(problem)
+    rng = np.random.default_rng(3)
+    reset_counts()
+    lats, per_step = [], []
+    for _ in range(MPC_STEPS):
+        x = torch.as_tensor(0.1 * rng.standard_normal((MPC_BATCH, NX)),
+                            dtype=torch.float32, device=dev)
+        t0 = time.perf_counter()
+        u, state, res, problem = mpc_step(problem, settings, x, state)
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t0) * 1e3)
+        per_step.append(read_counts()[0] - sum(per_step))
+        check(tuple(u.shape) == (MPC_BATCH, NU) and bool(torch.isfinite(u).all()),
+              "MPC control finite, of the expected shape")
+        check(bool(torch.isfinite(state.xs).all()), "MPC warm start finite")
+    launches = read_counts()
+    print(f"mpc: {MPC_STEPS} steps at B={MPC_BATCH}, step ms {lats}, launches "
+          f"K1={launches[0]} K2={launches[1]} (K1 per step {per_step})")
+    check(launches[0] == launches[1] >= MPC_STEPS, "MPC kernel launch counts")
+
+
+def main() -> int:
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device available", file=sys.stderr)
+        return 1
+    dev = torch.device("cuda")
+    full_f32_matmuls()
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {smi}; torch {torch.__version__} (CUDA {torch.version.cuda})")
+    t0 = time.perf_counter()
+    logs = cuda_build.build_all()
+    print(f"kernel build: {time.perf_counter() - t0:.1f} s")
+    for name, log in logs.items():
+        for line in log.splitlines():
+            if "registers" in line or "spill" in line:
+                print(f"  {name}: {line.strip()}")
+
+    kernels = kernels_phase(dev)
+    launches = slice_phase(dev)
+    mpc_phase(dev)
+    for k, n in zip(kernels, launches):
+        k["launches"] = n
+    print(json.dumps({"kernels": kernels}))
+    print(smi)
+    print(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
