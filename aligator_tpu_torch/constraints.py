@@ -69,15 +69,21 @@ class NegativeOrthant(ConstraintSet):
 
 @dataclasses.dataclass(frozen=True)
 class BoxConstraint(ConstraintSet):
-    """z ∈ [lower, upper]; the bounds are static tuples."""
+    """z ∈ [lower, upper]; the bounds are static tuples, made into tensors
+    once per dtype and device (not on every projection)."""
 
     lower: tuple
     upper: tuple
+    _tensors: dict = dataclasses.field(default_factory=dict, init=False,
+                                       repr=False, compare=False)
 
     def _bounds(self, z):
-        lo = torch.tensor(self.lower, dtype=z.dtype, device=z.device)
-        hi = torch.tensor(self.upper, dtype=z.dtype, device=z.device)
-        return lo, hi
+        key = (z.dtype, z.device)
+        if key not in self._tensors:
+            self._tensors[key] = (
+                torch.tensor(self.lower, dtype=z.dtype, device=z.device),
+                torch.tensor(self.upper, dtype=z.dtype, device=z.device))
+        return self._tensors[key]
 
     def projection(self, z, mu):
         lo, hi = self._bounds(z)

@@ -43,36 +43,33 @@ def lqr_from_numpy(arrays: Mapping[str, np.ndarray], device=None,
 
 
 def problem_from_numpy(A, B, c, Q, R, Qf, x0, N: int, lower=None, upper=None,
-                       Rf=None, Nx=None, device=None,
-                       dtype: Optional[torch.dtype] = None) -> TrajOptProblem:
+                       device=None, dtype: Optional[torch.dtype] = None
+                       ) -> TrajOptProblem:
     """The LQR-class problem of the bench and the entry point: linear
-    dynamics x⁺ = A x + B u + c, running cost ½xᵀQx + ½uᵀRu (+ xᵀNx u),
-    terminal cost ½xᵀQf x (+ ½uᵀRf u, Rf defaulting to R), and — when
-    ``lower``/``upper`` are given — the box lower ≤ u ≤ upper as a
-    ``ControlErrorResidual`` in a ``BoxConstraint``. ``x0`` is (nx,) or
-    (B, nx). A, B, c of shapes (B, nx, nx), (B, nx, nu), (B, nx) make a
-    problem whose dynamics differ per batch element."""
+    dynamics x⁺ = A x + B u + c, running cost ½xᵀQx + ½uᵀRu, terminal cost
+    ½xᵀQf x + ½uᵀRu, and — when ``lower``/``upper`` are given — the box
+    lower ≤ u ≤ upper as a ``ControlErrorResidual`` in a ``BoxConstraint``.
+    ``x0`` is (nx,) or (B, nx). A, B, c of shapes (B, nx, nx), (B, nx, nu),
+    (B, nx) make a problem whose dynamics differ per batch element; the
+    other arrays are shared by the batch."""
     device = resolve_device(device)
     t = lambda a: torch.as_tensor(np.array(a), device=device)
+    shared = lambda obj: tree_map(lambda a: a.unsqueeze(0), obj)
     A, B, c = t(A), t(B), t(c)
-    batched = A.dim() == 3
+    dyn = LinearDiscreteDynamics(A=A, B=B, c=c)
+    if A.dim() == 2:
+        dyn = shared(dyn)
     nx, nu = A.shape[-1], B.shape[-1]
     dt = dtype or A.dtype
-    rcost = QuadraticCost.create(t(Q), t(R), N=None if Nx is None else t(Nx))
-    tcost = QuadraticCost.create(t(Qf), t(R if Rf is None else Rf))
-    if batched:  # shared cost weights, broadcast over the batch (views)
-        bsz = A.shape[0]
-        rcost, tcost = (tree_map(lambda a: a.expand(bsz, *a.shape), cst)
-                        for cst in (rcost, tcost))
     constraints = ()
     if lower is not None:
         box = BoxConstraint(lower=tuple(float(v) for v in lower),
                             upper=tuple(float(v) for v in upper))
-        target = torch.zeros((A.shape[0], nu) if batched else (nu,), dtype=dt,
-                             device=device)
+        target = torch.zeros((1, nu), dtype=dt, device=device)
         constraints = ((ControlErrorResidual(target=target), box, nu),)
     return build_problem(
-        VectorSpace(nx), nu, N, t(x0), LinearDiscreteDynamics(A=A, B=B, c=c),
-        rcost, tcost, constraints=constraints, batched=batched, device=device,
-        dtype=dt,
+        VectorSpace(nx), nu, N, t(x0), dyn,
+        shared(QuadraticCost.create(t(Q), t(R))),
+        shared(QuadraticCost.create(t(Qf), t(R))),
+        constraints=constraints, device=device, dtype=dt,
     )

@@ -371,6 +371,8 @@ __global__ void __launch_bounds__(kThreads) riccati_backward_kernel(
   }
 }
 
+constexpr int kMaxDevices = 64;
+
 }  // namespace
 
 extern "C" {
@@ -392,10 +394,20 @@ int riccati_backward_f32(const void* Q, const void* S, const void* R,
                          void* stream) {
   const Dims s{nx, nu, nc, nx + 1};
   const size_t smem = Layout::floats(s) * sizeof(float);
-  cudaError_t err = cudaFuncSetAttribute(
-      riccati_backward_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)smem);
+  // The kernel's dynamic shared-memory limit, raised once per device and
+  // only when a launch needs more than was set before.
+  static size_t smem_limit[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return (int)err;
+  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
+  if (smem > smem_limit[dev]) {
+    err = cudaFuncSetAttribute(riccati_backward_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return (int)err;
+    smem_limit[dev] = smem;
+  }
   riccati_backward_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)Q, (const float*)S, (const float*)R, (const float*)q,
       (const float*)r, (const float*)A, (const float*)Bm, (const float*)f,

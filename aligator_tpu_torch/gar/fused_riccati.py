@@ -15,17 +15,18 @@ explicit leading batch axis replaces the ``custom_vmap`` rules, and the
 small initial-stage KKT solve stays in torch. Scope as in the JAX module:
 nth = 0; the kernels take float32 only.
 
-Each wrapper takes its plain torch version (``*_ref``, same math, same
-module) only for tensors that lie on the CPU. For CUDA tensors it launches
+Each wrapper takes its plain torch version (``*_ref``: the serial
+recursion of ``gar.riccati``) only for tensors that lie on the CPU. For CUDA tensors it launches
 the kernel or raises; there is no fallback.
 """
 
 from __future__ import annotations
 
-import ctypes
+import functools
 
 import torch
 
+from aligator_tpu_torch.gar import riccati as _riccati
 from aligator_tpu_torch.gar.lqr_problem import LQRProblem
 from aligator_tpu_torch.gar.riccati import (
     CostToGo,
@@ -36,9 +37,7 @@ from aligator_tpu_torch.gar.riccati import (
     initial_costate,
     initial_solve,
     knots_of,
-    mv,
 )
-from aligator_tpu_torch.linalg.schur import kkt_solve_refined
 from aligator_tpu_torch.utils import cuda_build
 from aligator_tpu_torch.utils.profiling import named_scope
 
@@ -96,45 +95,15 @@ def _pack(kff, zff, yff, K, Z, Acl, Vxx, vx):
 
 def backward_sweep_batched_ref(knots: Knot, mueq: torch.Tensor,
                                refine_steps: int = 1):
-    """Plain torch version of the backward kernel: the same arithmetic,
-    step by step, batched over the leading axis (one problem per row)."""
-    Bsz, L = knots.Q.shape[:2]
-    nx, nu = knots.Q.shape[-1], knots.R.shape[-1]
-    mu = batch_mu(mueq, Bsz, knots.Q)
-    V = knots.Q.new_zeros((Bsz, nx, nx))
-    v = knots.Q.new_zeros((Bsz, nx))
-    out = {k: [None] * L for k in _GAIN_SHAPES}
-    for t in range(L - 1, -1, -1):
-        term = t == L - 1
-        kn = {f: getattr(knots, f)[:, t] for f in _KNOT_SHAPES}
-        A, Bm, f = kn["A"], kn["B"], kn["f"]
-        if term:  # select, not multiply: terminal A, B, f are never read
-            A, Bm, f = torch.zeros_like(A), torch.zeros_like(Bm), torch.zeros_like(f)
-        vplus = v + mv(V, f)
-        AtV = A.mT @ V
-        BtV = Bm.mT @ V
-        Qh = kn["Q"] + AtV @ A
-        Sh = kn["S"] + AtV @ Bm
-        Rh = kn["R"] + BtV @ Bm
-        Rh = 0.5 * (Rh + Rh.mT)
-        qh = kn["q"] + mv(A.mT, vplus)
-        rh = kn["r"] + mv(Bm.mT, vplus)
-        b1 = -torch.cat([Sh.mT, rh.unsqueeze(-1)], dim=-1)
-        b2 = -torch.cat([kn["C"], kn["d"].unsqueeze(-1)], dim=-1)
-        k, z = kkt_solve_refined(Rh, kn["D"], mu, b1, b2, refine_steps=refine_steps)
-        K, kff, Z, zff = k[..., :nx], k[..., nx], z[..., :nx], z[..., nx]
-        AclY = torch.cat([A, f.unsqueeze(-1)], dim=-1) + Bm @ k
-        W = (torch.cat([Qh, qh.unsqueeze(-1)], dim=-1) + Sh @ k
-             + kn["C"].mT @ z)
-        V = 0.5 * (W[..., :nx] + W[..., :nx].mT)
-        v = W[..., nx]
-        vals = dict(K=K, Z=Z, kff=kff, zff=zff, yff=AclY[..., nx],
-                    Acl=AclY[..., :nx], Vxx=V, vx=v)
-        for name, val in vals.items():
-            out[name][t] = val
-    st = {name: torch.stack(seq, dim=1) for name, seq in out.items()}
-    return _pack(st["kff"], st["zff"], st["yff"], st["K"], st["Z"], st["Acl"],
-                 st["Vxx"], st["vx"])
+    """Plain torch version of the backward kernel: the serial recursion of
+    ``gar.riccati`` at nth = 0, which like the kernel never reads the
+    terminal knot's A, B and f."""
+    return _riccati.backward_sweep(knots, mueq, refine_steps)
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_smem_bytes(nx: int, nu: int, nc: int) -> int:
+    return cuda_build.load("riccati_backward").riccati_backward_smem_bytes(nx, nu, nc)
 
 
 @named_scope("gar.fused.backward")
@@ -163,10 +132,7 @@ def backward_sweep_batched(knots: Knot, mueq: torch.Tensor, refine_steps: int = 
     mu = batch_mu(mueq, Bsz, knots.Q).contiguous()
     _vec_check("mueq", mu, (Bsz,), knots.Q.device)
 
-    lib = cuda_build.load("riccati_backward")
-    lib.riccati_backward_smem_bytes.argtypes = [ctypes.c_int] * 3
-    lib.riccati_backward_smem_bytes.restype = ctypes.c_longlong
-    smem = lib.riccati_backward_smem_bytes(nx, nu, nc)
+    smem = _backward_smem_bytes(nx, nu, nc)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
             f"dims nx={nx}, nu={nu}, nc={nc} need {smem} bytes of shared "
@@ -176,9 +142,7 @@ def backward_sweep_batched(knots: Knot, mueq: torch.Tensor, refine_steps: int = 
                           dtype=torch.float32, device=knots.Q.device)
         for name, shape in _GAIN_SHAPES.items()
     }
-    fn = lib.riccati_backward_f32
-    fn.argtypes = [ctypes.c_void_p] * 20 + [ctypes.c_int] * 6 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.load("riccati_backward").riccati_backward_f32
     order_out = ("K", "Z", "kff", "zff", "yff", "Acl", "Vxx", "vx")
     with torch.cuda.device(knots.Q.device):  # launch on the tensors' card
         err = fn(
@@ -204,18 +168,9 @@ backward_sweep_batched.launches = 0
 
 def forward_sweep_batched_ref(gains: Gains, vms: CostToGo, x0: torch.Tensor,
                               lbd0: torch.Tensor):
-    """Plain torch version of the forward kernel."""
-    L = gains.K.shape[1]
-    x = x0
-    xs, us, vs, lbds = [], [], [], []
-    for t in range(L):
-        xs.append(x)
-        us.append(gains.kff[:, t] + mv(gains.K[:, t], x))
-        vs.append(gains.zff[:, t] + mv(gains.Z[:, t], x))
-        lbds.append(lbd0 if t == 0 else vms.vx[:, t] + mv(vms.Vxx[:, t], x))
-        x = gains.yff[:, t] + mv(gains.Acl[:, t], x)
-    st = lambda seq: torch.stack(seq, dim=1)
-    return st(xs), st(us), st(vs), st(lbds)
+    """Plain torch version of the forward kernel: the serial rollout of
+    ``gar.riccati`` with a zero-width θ."""
+    return _riccati.forward_sweep(gains, vms, x0, lbd0, x0.new_zeros((x0.shape[0], 0)))
 
 
 @named_scope("gar.fused.forward")
@@ -241,10 +196,7 @@ def forward_sweep_batched(gains: Gains, vms: CostToGo, x0: torch.Tensor,
 
     outs = [torch.empty((Bsz, L, n), dtype=torch.float32, device=x0.device)
             for n in (nx, nu, nc, nx)]
-    lib = cuda_build.load("riccati_forward")
-    fn = lib.riccati_forward_f32
-    fn.argtypes = [ctypes.c_void_p] * 14 + [ctypes.c_int] * 5 + [ctypes.c_void_p]
-    fn.restype = ctypes.c_int
+    fn = cuda_build.load("riccati_forward").riccati_forward_f32
     with torch.cuda.device(x0.device):  # launch on the tensors' card
         err = fn(
             *(a.data_ptr() for a in named.values()), x0.data_ptr(), lbd0.data_ptr(),

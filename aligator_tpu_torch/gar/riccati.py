@@ -193,10 +193,11 @@ def backward_sweep(knots: Knot, mueq, refine_steps: int = 1):
 
 
 @named_scope("gar.riccati.forward_sweep")
-def forward_sweep(knots: Knot, gains: Gains, vms: CostToGo, x0, lbd0, theta):
-    """Closed-loop forward rollout over L knots from (x0, λ0) (B, nx) and θ
-    (B, nth). Returns (xs, us, vs, lbds), each (B, L, ·); lbds[:, 0] = λ0."""
-    L = knots.Q.shape[1]
+def forward_sweep(gains: Gains, vms: CostToGo, x0, lbd0, theta):
+    """Closed-loop forward rollout over the L knots of ``gains`` from
+    (x0, λ0) (B, nx) and θ (B, nth). Returns (xs, us, vs, lbds), each
+    (B, L, ·); lbds[:, 0] = λ0."""
+    L = gains.K.shape[1]
     x = x0
     xs, us, vs, lbds = [], [], [], [lbd0]
     for t in range(L):
@@ -259,7 +260,7 @@ def forward(problem: LQRProblem, factors: RiccatiFactors,
     th = theta if theta is not None else problem.Q.new_zeros(
         (problem.batch, problem.nth))
     x0, lbd0 = initial_costate(problem, factors, th)
-    return forward_sweep(knots_of(problem), factors.gains, factors.vm, x0, lbd0, th)
+    return forward_sweep(factors.gains, factors.vm, x0, lbd0, th)
 
 
 def solve(problem: LQRProblem, mueq, mudyn=0.0,

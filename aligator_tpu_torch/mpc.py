@@ -25,9 +25,9 @@ def _set_last(a: torch.Tensor, new: torch.Tensor, axis: int) -> torch.Tensor:
 def cycle_problem(problem: TrajOptProblem, new_stage=None,
                   new_constraints=None) -> TrajOptProblem:
     """Shift the horizon one stage left; the vacated last slot takes
-    ``new_stage`` = (dynamics, cost) objects without a time axis (default:
-    the old first stage, the circular behaviour)."""
-    ax = problem.time_axis
+    ``new_stage`` = (dynamics, cost) objects with a batch axis and no time
+    axis (default: the old first stage, the circular behaviour)."""
+    ax = 1  # stage leaves are (1 or B, N, ...)
     roll = lambda obj: tree_map(lambda a: torch.roll(a, -1, dims=ax), obj)
     dyn = roll(problem.dynamics)
     cost = roll(problem.cost)

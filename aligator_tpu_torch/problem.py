@@ -4,9 +4,10 @@ A problem is ONE homogeneous stage specification whose tensor parameters
 are stacked over the horizon (leading time axis N), plus a terminal cost
 and constraint stack and an initial condition. Per-stage evaluation is
 ``torch.func.vmap`` over time, nested in a vmap over the batch of
-problems: trajectories carry a leading batch axis B. Stage parameters are
-shared by the batch (leaves (N, ...)) unless the problem is ``batched``
-(leaves (B, N, ...)); ``x0`` is always (B, nx).
+problems: trajectories carry a leading batch axis B. Every tensor of the
+stage and terminal objects carries a leading batch axis too, broadcast as
+torch broadcasts: of length 1 where the batch shares it, of length B where
+each element has its own. Stage leaves are then (1 or B, N, ...).
 """
 
 from __future__ import annotations
@@ -33,8 +34,8 @@ from aligator_tpu_torch.utils.tree import (
 @dataclasses.dataclass(frozen=True)
 class TrajOptProblem:
     """Stacked trajectory-optimization problem. Stage objects have tensor
-    leaves with a time axis of length ``nsteps`` (after the batch axis when
-    ``batched``); the initial condition is the residual x ⊖ x0."""
+    leaves (1 or B, nsteps, ...), terminal objects (1 or B, ...); the
+    initial condition is the residual x ⊖ x0."""
 
     x0: torch.Tensor  # (B, nx)
     dynamics: Any
@@ -50,7 +51,6 @@ class TrajOptProblem:
     constraint_dims: Tuple[int, ...] = static_field()
     term_sets: Tuple[ConstraintSet, ...] = static_field()
     term_dims: Tuple[int, ...] = static_field()
-    batched: bool = static_field(default=False)
 
     @property
     def ndx(self) -> int:
@@ -72,11 +72,6 @@ class TrajOptProblem:
     def term_set_product(self) -> ConstraintSetProduct:
         return ConstraintSetProduct(sets=self.term_sets, dims=self.term_dims)
 
-    @property
-    def time_axis(self) -> int:
-        """Axis of the horizon in stage leaves."""
-        return 1 if self.batched else 0
-
     def replace(self, **changes) -> "TrajOptProblem":
         return dataclasses.replace(self, **changes)
 
@@ -84,13 +79,11 @@ class TrajOptProblem:
         return self.replace(x0=x0)
 
 
-def tile_stage(obj, nsteps: int, batched: bool = False):
+def tile_stage(obj, nsteps: int):
     """Broadcast a time-invariant stage object to the horizon (a view: no
-    copy). With ``batched`` the time axis goes after the batch axis."""
-    if batched:
-        return tree_map(
-            lambda a: a.unsqueeze(1).expand(a.shape[0], nsteps, *a.shape[1:]), obj)
-    return tree_map(lambda a: a.expand(nsteps, *a.shape), obj)
+    copy); the time axis goes after the batch axis."""
+    return tree_map(
+        lambda a: a.unsqueeze(1).expand(a.shape[0], nsteps, *a.shape[1:]), obj)
 
 
 def build_problem(
@@ -104,13 +97,13 @@ def build_problem(
     constraints: Sequence[Tuple[Any, ConstraintSet, int]] = (),
     term_constraints: Sequence[Tuple[Any, ConstraintSet, int]] = (),
     tile: bool = True,
-    batched: bool = False,
     device=None,
     dtype: Optional[torch.dtype] = None,
 ) -> TrajOptProblem:
     """Constructor. ``constraints`` entries are (residual, set, nr). With
     ``tile`` stage objects are time-invariant and tiled to the horizon.
-    ``batched``: stage leaves carry a leading batch axis. Every tensor is
+    Object leaves carry a leading batch axis of 1 (shared) or B. Every
+    tensor is
     moved to ``device`` (default: the GPU; raises without one) and cast to
     ``dtype`` (default: that of the dynamics' tensors). ``x0`` is (nx,) or
     (B, nx)."""
@@ -119,7 +112,7 @@ def build_problem(
         leaves = tree_leaves(dynamics)
         dtype = leaves[0].dtype if leaves else torch.as_tensor(x0).dtype
     mv = lambda o: tree_map(lambda a: a.to(device=device, dtype=dtype), o)
-    t = (lambda o: tile_stage(mv(o), nsteps, batched)) if tile else mv
+    t = (lambda o: tile_stage(mv(o), nsteps)) if tile else mv
     x0 = torch.as_tensor(x0).to(device=device, dtype=dtype)
     return TrajOptProblem(
         x0=x0,
@@ -135,7 +128,6 @@ def build_problem(
         constraint_dims=tuple(n for _, _, n in constraints),
         term_sets=tuple(s for _, s, _ in term_constraints),
         term_dims=tuple(n for _, _, n in term_constraints),
-        batched=batched,
     )
 
 
@@ -179,13 +171,14 @@ def _stage_cstr_values(cstrs, x, u):
     return torch.cat([f.value(x, u) for f in cstrs], dim=-1)
 
 
-def _vmap_batch(fn, objs, batched: bool, *args, time: bool = False):
+def _vmap_batch(fn, objs, *args, time: bool = False):
     """Map ``fn(objs, *args)`` over the batch (and over time first when
     ``time``): the port's counterpart of the JAX package's per-stage
-    ``jax.vmap`` inside the bench's ``jax.vmap(solve)``. Tensors in
-    ``objs`` are mapped over the batch only when ``batched``; ``args``
+    ``jax.vmap`` inside the bench's ``jax.vmap(solve)``. A leaf of ``objs``
+    with a batch axis of length 1 is shared by every element; ``args``
     always carry the batch (then time) axes."""
-    leaves = tree_leaves(objs)
+    shared = [a.shape[0] == 1 for a in tree_leaves(objs)]
+    leaves = [a[0] if sh else a for a, sh in zip(tree_leaves(objs), shared)]
     n = len(leaves)
 
     def flat(*xs):
@@ -193,8 +186,8 @@ def _vmap_batch(fn, objs, batched: bool, *args, time: bool = False):
 
     if time:
         flat = vmap(flat, in_dims=(0,) * (n + len(args)))
-    obj_dim = 0 if batched else None
-    return vmap(flat, in_dims=(obj_dim,) * n + (0,) * len(args))(*leaves, *args)
+    obj_dims = tuple(None if sh else 0 for sh in shared)
+    return vmap(flat, in_dims=obj_dims + (0,) * len(args))(*leaves, *args)
 
 
 @named_scope("problem.evaluate")
@@ -211,7 +204,7 @@ def evaluate(problem: TrajOptProblem, xs: torch.Tensor, us: torch.Tensor) -> Pro
 
     costs, defects, cstr_vals = _vmap_batch(
         stage, (problem.dynamics, problem.cost, problem.constraints),
-        problem.batched, xs[:, :N], us, xs[:, 1:], time=True,
+        xs[:, :N], us, xs[:, 1:], time=True,
     )
 
     def terminal(objs, x):
@@ -220,8 +213,7 @@ def evaluate(problem: TrajOptProblem, xs: torch.Tensor, us: torch.Tensor) -> Pro
         return tcost.value(space, x, u0), _stage_cstr_values(tcstrs, x, u0)
 
     term_c, term_cv = _vmap_batch(
-        terminal, (problem.term_cost, problem.term_constraints), problem.batched,
-        xs[:, N],
+        terminal, (problem.term_cost, problem.term_constraints), xs[:, N],
     )
     init_err = vmap(space.difference)(problem.x0, xs[:, 0])
     return ProblemData(costs=costs, term_cost=term_c, init_err=init_err,
@@ -253,7 +245,7 @@ def compute_derivatives(problem: TrajOptProblem, xs: torch.Tensor,
 
     Lx, Lu, Lxx, Lxu, Luu, A, B, Cx, Cu = _vmap_batch(
         stage, (problem.dynamics, problem.cost, problem.constraints),
-        problem.batched, xs[:, :N], us, xs[:, 1:], time=True,
+        xs[:, :N], us, xs[:, 1:], time=True,
     )
 
     def terminal(objs, x):
@@ -265,8 +257,7 @@ def compute_derivatives(problem: TrajOptProblem, xs: torch.Tensor,
         return LxN, LxxN, CxN
 
     LxN, LxxN, CxN = _vmap_batch(
-        terminal, (problem.term_cost, problem.term_constraints), problem.batched,
-        xs[:, N],
+        terminal, (problem.term_cost, problem.term_constraints), xs[:, N],
     )
     G0 = vmap(lambda x, x0: StateErrorResidual(target=x0, space=space).jac_x(
         space, x, x.new_zeros(nu)))(xs[:, 0], problem.x0)
@@ -281,12 +272,11 @@ def rollout(problem: TrajOptProblem, x0: torch.Tensor, us: torch.Tensor) -> torc
     """Open-loop rollout of the dynamics; x0 (B, nx), us (B, N, nu) →
     xs (B, N+1, nx)."""
     space = problem.space
-    tax = problem.time_axis
     xs = [x0]
     for t in range(problem.nsteps):
-        dyn_t = tree_map(lambda a: a.select(tax, t), problem.dynamics)
+        dyn_t = tree_map(lambda a: a[:, t], problem.dynamics)
         xs.append(_vmap_batch(lambda d, x, u: d.forward(space, x, u), dyn_t,
-                              problem.batched, xs[-1], us[:, t]))
+                              xs[-1], us[:, t]))
     return torch.stack(xs, dim=1)
 
 

@@ -20,7 +20,19 @@ from typing import Dict
 _PKG = Path(__file__).resolve().parents[1]
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG.parent / "build" / "kernels"
-SOURCES = ("riccati_backward", "riccati_forward")
+_P, _I = ctypes.c_void_p, ctypes.c_int
+# The C functions of each source: name -> (argtypes, restype), set once at
+# load. Pointers and the stream are void*, dims and counts int.
+SIGNATURES = {
+    "riccati_backward": {
+        "riccati_backward_smem_bytes": ([_I] * 3, ctypes.c_longlong),
+        "riccati_backward_f32": ([_P] * 20 + [_I] * 6 + [_P], _I),
+    },
+    "riccati_forward": {
+        "riccati_forward_f32": ([_P] * 14 + [_I] * 5 + [_P], _I),
+    },
+}
+SOURCES = tuple(SIGNATURES)
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
     "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v",
@@ -74,11 +86,15 @@ def build_all() -> Dict[str, str]:
 
 
 def load(name: str) -> ctypes.CDLL:
-    """The loaded library of ``csrc/<name>.cu``, building it if needed."""
+    """The loaded library of ``csrc/<name>.cu``, building it if needed,
+    with its functions' argument and result types set."""
     lib = _LIBS.get(name)
     if lib is None:
         if not _target(name).exists():
             build_all()
         lib = ctypes.CDLL(str(_target(name)))
+        for fn, (argtypes, restype) in SIGNATURES[name].items():
+            getattr(lib, fn).argtypes = argtypes
+            getattr(lib, fn).restype = restype
         _LIBS[name] = lib
     return lib
