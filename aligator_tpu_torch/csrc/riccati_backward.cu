@@ -373,6 +373,24 @@ __global__ void __launch_bounds__(kThreads) riccati_backward_kernel(
 
 constexpr int kMaxDevices = 64;
 
+// Raises the kernel's dynamic shared-memory limit on the current device,
+// once per device and only when `smem` is more than was set before.
+cudaError_t ensure_smem_limit(size_t smem) {
+  static size_t smem_limit[kMaxDevices] = {};
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return err;
+  if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
+  if (smem > smem_limit[dev]) {
+    err = cudaFuncSetAttribute(riccati_backward_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
+    if (err != cudaSuccess) return err;
+    smem_limit[dev] = smem;
+  }
+  return cudaSuccess;
+}
+
 }  // namespace
 
 extern "C" {
@@ -381,6 +399,21 @@ extern "C" {
 long long riccati_backward_smem_bytes(int nx, int nu, int nc) {
   const Dims s{nx, nu, nc, nx + 1};
   return (long long)(Layout::floats(s) * sizeof(float));
+}
+
+// Blocks of the kernel that one SM of the current device holds at once at
+// these dims (kThreads threads and the shared memory above per block), as
+// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives it; a cudaError as
+// a negative number.
+int riccati_backward_blocks_per_sm(int nx, int nu, int nc) {
+  const Dims s{nx, nu, nc, nx + 1};
+  const size_t smem = Layout::floats(s) * sizeof(float);
+  cudaError_t err = ensure_smem_limit(smem);
+  if (err != cudaSuccess) return -(int)err;
+  int blocks = 0;
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+      &blocks, riccati_backward_kernel, kThreads, smem);
+  return err == cudaSuccess ? blocks : -(int)err;
 }
 
 // Launches one block per problem on `stream`; returns cudaGetLastError().
@@ -394,20 +427,8 @@ int riccati_backward_f32(const void* Q, const void* S, const void* R,
                          void* stream) {
   const Dims s{nx, nu, nc, nx + 1};
   const size_t smem = Layout::floats(s) * sizeof(float);
-  // The kernel's dynamic shared-memory limit, raised once per device and
-  // only when a launch needs more than was set before.
-  static size_t smem_limit[kMaxDevices] = {};
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
+  const cudaError_t err = ensure_smem_limit(smem);
   if (err != cudaSuccess) return (int)err;
-  if (dev >= kMaxDevices) return (int)cudaErrorInvalidDevice;
-  if (smem > smem_limit[dev]) {
-    err = cudaFuncSetAttribute(riccati_backward_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)smem);
-    if (err != cudaSuccess) return (int)err;
-    smem_limit[dev] = smem;
-  }
   riccati_backward_kernel<<<batch, kThreads, smem, (cudaStream_t)stream>>>(
       (const float*)Q, (const float*)S, (const float*)R, (const float*)q,
       (const float*)r, (const float*)A, (const float*)Bm, (const float*)f,

@@ -106,6 +106,15 @@ def _backward_smem_bytes(nx: int, nu: int, nc: int) -> int:
     return cuda_build.load("riccati_backward").riccati_backward_smem_bytes(nx, nu, nc)
 
 
+def backward_blocks_per_sm(nx: int, nu: int, nc: int) -> int:
+    """Blocks of the backward kernel that one SM of the current card holds
+    at once at these dims (its occupancy, from the CUDA runtime)."""
+    n = cuda_build.load("riccati_backward").riccati_backward_blocks_per_sm(nx, nu, nc)
+    if n < 0:
+        raise RuntimeError(f"riccati_backward occupancy query failed: cudaError {-n}")
+    return n
+
+
 @named_scope("gar.fused.backward")
 def backward_sweep_batched(knots: Knot, mueq: torch.Tensor, refine_steps: int = 1):
     """Fused backward sweep over a batch of stacked knot sets.

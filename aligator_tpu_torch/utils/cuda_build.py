@@ -26,10 +26,19 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "riccati_backward": {
         "riccati_backward_smem_bytes": ([_I] * 3, ctypes.c_longlong),
+        "riccati_backward_blocks_per_sm": ([_I] * 3, _I),
         "riccati_backward_f32": ([_P] * 20 + [_I] * 6 + [_P], _I),
     },
     "riccati_forward": {
         "riccati_forward_f32": ([_P] * 14 + [_I] * 5 + [_P], _I),
+    },
+    "layout_probe": {
+        "probe_batched_mm_f32": ([_P] * 3 + [_I] * 5 + [_P], _I),
+        "probe_shared_mm_f32": ([_P] * 3 + [_I] * 4 + [_P], _I),
+        "probe_transpose_f32": ([_P] * 2 + [_I] * 4 + [_P], _I),
+        "probe_bcast_fma_f32": ([_P] * 3 + [_I] * 4 + [_P], _I),
+        "probe_slab_reduce_f32": ([_P] * 2 + [_I] * 4 + [_P], _I),
+        "probe_lanes_apply_f32": ([_P] * 3 + [_I] * 3 + [_P], _I),
     },
 }
 SOURCES = tuple(SIGNATURES)

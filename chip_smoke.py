@@ -6,12 +6,14 @@ Run from the root of the repository on a machine with one CUDA card:
 
 It builds the hand-written kernels from ``aligator_tpu_torch/csrc`` (nvcc,
 sm_90a, into ``build/kernels``), holds each kernel against its plain
-torch version on the card, drives the main path — the batched ProxDDP
-solve of the lqr56 box-constrained LQR (B = 256, N = 100, 2 iterations,
-float32) and three MPC steps — through the kernels, checks the results,
-and prints one JSON line per kernel report and a final status line. Any
-failed check raises, and the script exits non-zero; without a CUDA device
-it exits non-zero before doing anything.
+torch version on the card, runs the layout probe (the port of
+``scripts/probe_mosaic.py``: each probe body against its plain version,
+then timed per construct beside its library call), drives the main path
+— the batched ProxDDP solve of the lqr56 box-constrained LQR (B = 256,
+N = 100, 2 iterations, float32) and three MPC steps — through the
+kernels, checks the results, and prints one JSON line of kernel reports
+and a final status line. Any failed check raises, and the script exits
+non-zero; without a CUDA device it exits non-zero before doing anything.
 """
 
 from __future__ import annotations
@@ -29,6 +31,7 @@ from aligator_tpu_torch.gar import fused_riccati as FR
 from aligator_tpu_torch.gar.riccati import knots_of
 from aligator_tpu_torch.gar.utils import lqr_kkt_error
 from aligator_tpu_torch.mpc import init_mpc_state, mpc_step
+from aligator_tpu_torch.probes import layout_probe as LP
 from aligator_tpu_torch.solvers.proxddp import ProxDDPSettings, solve
 from aligator_tpu_torch.utils import cuda_build
 from aligator_tpu_torch.utils.device import full_f32_matmuls
@@ -202,6 +205,12 @@ def kernels_phase(dev):
     print(f"fused solve KKT residual max {kkt:.3e}")
     check(kkt < 5e-4, "fused solve KKT residual")
     report = reports[-1]
+    Bsz, L, nx, nu, nc = report["dims"]
+    per_sm = FR.backward_blocks_per_sm(nx, nu, nc)
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"K1 occupancy at nx={nx} nu={nu} nc={nc}: {per_sm} blocks per SM "
+          f"({FR._backward_smem_bytes(nx, nu, nc)} B of shared memory per block), "
+          f"{per_sm * n_sm} resident blocks on {n_sm} SMs for B={Bsz}")
 
     # times at the bench widths: kernel vs plain version on the same inputs
     kn, mu, gp, vp, x0, l0 = (report[k] for k in ("knots", "mu", "gp", "vp", "x0", "l0"))
@@ -209,7 +218,6 @@ def kernels_phase(dev):
     k1_plain = cuda_ms(lambda: FR.backward_sweep_batched_ref(kn, mu), 2)
     k2_ms = cuda_ms(lambda: FR.forward_sweep_batched(gp, vp, x0, l0), 20)
     k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
-    Bsz, L, nx, nu, nc = report["dims"]
     b1, by1 = bound_ms(*backward_cost(Bsz, L, nx, nu, nc, 1))
     b2, by2 = bound_ms(*forward_cost(Bsz, L, nx, nu, nc))
     print(f"bench widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, "
@@ -229,6 +237,36 @@ def kernels_phase(dev):
     ]
 
 
+def probe_phase(dev):
+    """P1, the layout probe (``scripts/probe_mosaic.py``; on no solver
+    path): each body against its plain version at the probe's shapes and
+    both repeat counts, then timed per construct, with its plain version
+    and its library calls, by the slope over the repeat counts. Bound of
+    one construct: its operations over the float32 FMA rate (its operands
+    are on chip after the launch's first read); beside it the bytes bound
+    of one launch, every input read once and the output written once."""
+    rows = []
+    for r in LP.run(dev):
+        p = r["probe"]
+        ms = {k: r[k]["per_s"] * 1e3 for k in ("kernel", "plain", "library")}
+        bound = p.flops / F32_FLOP_PER_S * 1e3
+        launch_bytes_ms = p.nbytes / HBM_BYTES_PER_S * 1e3
+        print(f"probe {p.tag} {p.name}: per construct kernel {ms['kernel'] * 1e3:.6f} us, "
+              f"plain {ms['plain'] * 1e3:.6f} us, library {ms['library'] * 1e3:.6f} us, "
+              f"bound {bound * 1e3:.6f} us ({p.flops} operations); launch @rep"
+              f"{p.reps[0]} {r['kernel']['launch_s'] * 1e3:.6f} ms, bytes bound "
+              f"{launch_bytes_ms * 1e3:.6f} us ({p.nbytes} B); max abs err "
+              f"{r['max_abs_err']:.3e}")
+        rows.append(dict(
+            name=p.name, tag=p.tag, route="cuda",
+            source="aligator_tpu_torch/csrc/layout_probe.cu", replaces=p.replaces,
+            max_abs_err=r["max_abs_err"], ms=ms["kernel"], plain_ms=ms["plain"],
+            bound_ms=bound, bound_by="operations", library_ms=ms["library"],
+            per="construct", launch_ms=r["kernel"]["launch_s"] * 1e3,
+            launch_bytes_bound_ms=launch_bytes_ms))
+    return rows
+
+
 def bench_settings(lq_solver: str, **kw) -> ProxDDPSettings:
     """bench.py:103-107: fixed 2-iteration batched solves."""
     base = dict(tol=1e-7, mu_init=1e-2, max_iters=SOLVER_ITERS,
@@ -237,13 +275,21 @@ def bench_settings(lq_solver: str, **kw) -> ProxDDPSettings:
     return ProxDDPSettings(**base)
 
 
+def counted() -> dict:
+    """Each kernel row's wrapper, whose ``launches`` counts its launches
+    (both bmm probes share ``batched_mm``)."""
+    return {"riccati_backward": FR.backward_sweep_batched,
+            "riccati_forward": FR.forward_sweep_batched,
+            **{p.name: p.kernel for p in LP.probes()}}
+
+
 def reset_counts():
-    FR.backward_sweep_batched.launches = 0
-    FR.forward_sweep_batched.launches = 0
+    for w in counted().values():
+        w.launches = 0
 
 
-def read_counts():
-    return FR.backward_sweep_batched.launches, FR.forward_sweep_batched.launches
+def read_counts() -> dict:
+    return {name: w.launches for name, w in counted().items()}
 
 
 def slice_phase(dev):
@@ -259,10 +305,11 @@ def slice_phase(dev):
     res = solve(problem, bench_settings("pallas"))
     torch.cuda.synchronize()
     launches = read_counts()
+    k1, k2 = launches["riccati_backward"], launches["riccati_forward"]
     n_iters = int(res.num_iters.max())
-    print(f"slice: launches K1={launches[0]} K2={launches[1]}, iterations "
+    print(f"slice: launches {json.dumps(launches)}, iterations "
           f"max {n_iters}, prim_infeas max {float(res.prim_infeas.max()):.3e}")
-    check(launches[0] == launches[1] >= n_iters >= 1, "kernel launch counts")
+    check(k1 == k2 >= n_iters >= 1, "kernel launch counts")
     check(tuple(res.xs.shape) == (BATCH, NSTEPS + 1, NX)
           and bool(torch.isfinite(res.xs).all()) and bool(torch.isfinite(res.us).all()),
           "slice outputs finite, of the expected shape")
@@ -359,14 +406,15 @@ def mpc_phase(dev):
         u, state, res, problem = mpc_step(problem, settings, x, state)
         torch.cuda.synchronize()
         lats.append((time.perf_counter() - t0) * 1e3)
-        per_step.append(read_counts()[0] - sum(per_step))
+        per_step.append(read_counts()["riccati_backward"] - sum(per_step))
         check(tuple(u.shape) == (MPC_BATCH, NU) and bool(torch.isfinite(u).all()),
               "MPC control finite, of the expected shape")
         check(bool(torch.isfinite(state.xs).all()), "MPC warm start finite")
-    launches = read_counts()
+    counts = read_counts()
+    k1, k2 = counts["riccati_backward"], counts["riccati_forward"]
     print(f"mpc: {MPC_STEPS} steps at B={MPC_BATCH}, step ms {lats}, launches "
-          f"K1={launches[0]} K2={launches[1]} (K1 per step {per_step})")
-    check(launches[0] == launches[1] >= MPC_STEPS, "MPC kernel launch counts")
+          f"K1={k1} K2={k2} (K1 per step {per_step})")
+    check(k1 == k2 >= MPC_STEPS, "MPC kernel launch counts")
 
 
 def main() -> int:
@@ -387,11 +435,11 @@ def main() -> int:
             if "registers" in line or "spill" in line:
                 print(f"  {name}: {line.strip()}")
 
-    kernels = kernels_phase(dev)
+    kernels = kernels_phase(dev) + probe_phase(dev)
     launches = slice_phase(dev)
     mpc_phase(dev)
-    for k, n in zip(kernels, launches):
-        k["launches"] = n
+    for k in kernels:
+        k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {
