@@ -38,6 +38,7 @@ from aligator_tpu_torch.gar.riccati import (
     initial_solve,
     knots_of,
 )
+from aligator_tpu_torch.linalg.schur import cholesky
 from aligator_tpu_torch.utils import cuda_build
 from aligator_tpu_torch.utils.profiling import named_scope
 
@@ -101,9 +102,67 @@ def backward_sweep_batched_ref(knots: Knot, mueq: torch.Tensor,
     return _riccati.backward_sweep(knots, mueq, refine_steps)
 
 
+def _spd_inv(A: torch.Tensor) -> torch.Tensor:
+    """A⁻¹ of the symmetrized A; NaN where A is not positive definite (the
+    kernel inverts by elimination and poisons a non-positive pivot)."""
+    A = 0.5 * (A + A.mT)
+    return torch.cholesky_inverse(cholesky(A))
+
+
+def kkt_inverse_solve_ref(R: torch.Tensor, D: torch.Tensor, mu, b1: torch.Tensor,
+                          b2: torch.Tensor, refine_steps: int = 1):
+    """The backward kernel's KKT solve in plain torch, in the kernel's
+    order: the explicit inverse T of ``[[R, Dᵀ], [D, -µI]]``,
+
+        T = [[R⁻¹ - U (R⁻¹Dᵀ)ᵀ, U], [Uᵀ, -S⁻¹]],
+        S = sym(µI + D R⁻¹Dᵀ),  U = R⁻¹Dᵀ S⁻¹,
+
+    then sol = T·rhs and ``refine_steps`` rounds of sol += T·(rhs - KKT·sol).
+    Same contract as ``linalg.schur.kkt_solve_refined``: R (..., n, n),
+    D (..., m, n), b1 (..., n, p), b2 (..., m, p); returns (k, z). R is
+    symmetrized first, as the kernel does. The tests and chip_smoke.py
+    hold this formulation against the Cholesky path."""
+    nu, nc = R.shape[-1], D.shape[-2]
+    mu = torch.as_tensor(mu, dtype=R.dtype, device=R.device)
+    mu = mu.reshape(mu.shape + (1, 1))
+    R = 0.5 * (R + R.mT)
+    Rinv = _spd_inv(R)
+    if nc > 0:
+        eye = torch.eye(nc, dtype=R.dtype, device=R.device)
+        RiDt = Rinv @ D.mT
+        Sinv = _spd_inv(mu * eye + D @ RiDt)
+        U = RiDt @ Sinv
+        T = torch.cat([torch.cat([Rinv - U @ RiDt.mT, U], -1),
+                       torch.cat([U.mT, -Sinv], -1)], -2)
+        KKT = torch.cat([torch.cat([R, D.mT], -1),
+                         torch.cat([D, (-mu * eye).expand(D.shape[:-1] + (nc,))], -1)], -2)
+    else:
+        T, KKT = Rinv, R
+    rhs = torch.cat([b1, b2], -2)
+    sol = T @ rhs
+    for _ in range(refine_steps):
+        sol = sol + T @ (rhs - KKT @ sol)
+    return sol[..., :nu, :], sol[..., nu:, :]
+
+
 @functools.lru_cache(maxsize=None)
 def _backward_smem_bytes(nx: int, nu: int, nc: int) -> int:
     return cuda_build.load("riccati_backward").riccati_backward_smem_bytes(nx, nu, nc)
+
+
+@functools.lru_cache(maxsize=None)
+def _backward_variant(nx: int, nu: int, nc: int) -> int:
+    return cuda_build.load("riccati_backward").riccati_backward_variant(nx, nu, nc)
+
+
+def backward_variant(nx: int, nu: int, nc: int) -> str:
+    """Which instantiation of the backward kernel serves these dims:
+    ``"bench"`` (nx = 56, nu = nc = 22, widths fixed at compile time) or
+    ``"runtime"`` (widths read at launch)."""
+    v = _backward_variant(nx, nu, nc)
+    if v < 0:
+        raise ValueError(f"dims nx={nx}, nu={nu}, nc={nc} are outside the backward kernel")
+    return "bench" if v == 1 else "runtime"
 
 
 def backward_blocks_per_sm(nx: int, nu: int, nc: int) -> int:
@@ -141,6 +200,10 @@ def backward_sweep_batched(knots: Knot, mueq: torch.Tensor, refine_steps: int = 
     mu = batch_mu(mueq, Bsz, knots.Q).contiguous()
     _vec_check("mueq", mu, (Bsz,), knots.Q.device)
 
+    if _backward_variant(nx, nu, nc) < 0:
+        raise ValueError(
+            f"dims nx={nx}, nu={nu}, nc={nc}: the backward kernel takes nu, nc <= 32 "
+            f"and nx <= 84 (one tile of Q̂ per thread)")
     smem = _backward_smem_bytes(nx, nu, nc)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(

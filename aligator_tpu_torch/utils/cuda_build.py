@@ -26,6 +26,7 @@ _P, _I = ctypes.c_void_p, ctypes.c_int
 SIGNATURES = {
     "riccati_backward": {
         "riccati_backward_smem_bytes": ([_I] * 3, ctypes.c_longlong),
+        "riccati_backward_variant": ([_I] * 3, _I),
         "riccati_backward_blocks_per_sm": ([_I] * 3, _I),
         "riccati_backward_f32": ([_P] * 20 + [_I] * 6 + [_P], _I),
     },

@@ -19,6 +19,7 @@ non-zero; without a CUDA device it exits non-zero before doing anything.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -142,6 +143,41 @@ def bound_ms(nbytes, flops):
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
+def ptx_label(name: str) -> str:
+    """A short name for a mangled kernel or device function of the port's
+    sources: its identifier (past the file-local namespaces) and integer
+    template arguments."""
+    if not name.startswith("_ZN"):
+        return name[:60]
+    pos = 3
+    while True:
+        m = re.match(r"\d+", name[pos:])
+        if not m:
+            return name[:60]
+        n = int(m.group(0))
+        ident = name[pos + len(m.group(0)):pos + len(m.group(0)) + n]
+        pos += len(m.group(0)) + n
+        if not ident.startswith(("_INTERNAL_", "_GLOBAL__N_")):
+            break
+    args = re.match(r"I((?:Lin?\d+E)+)E", name[pos:])
+    if args:
+        vals = [v.replace("n", "-") for v in re.findall(r"Li(n?\d+)E", args.group(1))]
+        ident += "<" + ", ".join(vals) + ">"
+    return ident
+
+
+def print_ptxas(logs: dict) -> None:
+    """Registers and spills of every kernel and device function, by name."""
+    for src, log in logs.items():
+        fn = ""
+        for line in log.splitlines():
+            m = re.search(r"(?:Compiling entry function|Function properties for) '?(_Z\w+)", line)
+            if m:
+                fn = ptx_label(m.group(1))
+            elif "registers" in line or "spill" in line:
+                print(f"  {src} {fn}: {line.strip()}")
+
+
 def check(ok: bool, what: str) -> None:
     if not ok:
         raise RuntimeError(f"check failed: {what}")
@@ -152,19 +188,23 @@ def kernels_phase(dev):
     per-kernel report at the bench widths."""
     rng = np.random.default_rng(0)
     gen = torch.Generator(device=dev).manual_seed(0)
-    # (B, N, nx, nu, nc, tolerance mode): the small cases carry test_gar_pallas.py's
-    # float32 tolerances (gains 2e-4, Vxx 1e-3, xs 1e-3), as absolute
-    # errors; at the bench widths (N = 100, entries of Vxx up to ~1e3) the
-    # same float32 rounding accumulates over 100 steps, so the bound is
-    # relative to the largest entry of each output: 1e-4·max|·| (~840 ulp).
-    cases = [(4, 9, 7, 3, 2, "abs"), (4, 9, 7, 3, 0, "abs"),
-             (BATCH, NSTEPS, NX, NU, NU, "rel")]
-    reports = []
-    for Bsz, N, nx, nu, nc, mode in cases:
+    # (B, N, nx, nu, nc, µ, tolerance mode): the small cases carry
+    # test_gar_pallas.py's float32 tolerances (gains 2e-4, Vxx 1e-3, xs
+    # 1e-3), as absolute errors, at nc = nu - 1, nc < nu - 1 and nc = 0 and
+    # at both of its µ; they run K1's instantiation for widths read at
+    # launch. At the bench widths (the instantiation with compiled widths;
+    # N = 100, entries of Vxx up to ~1e3) the same float32 rounding
+    # accumulates over 100 steps, so the bound is relative to the largest
+    # entry of each output: 1e-4·max|·| (~840 ulp).
+    cases = [(4, 9, 7, 3, nc, mu, "abs") for nc in (2, 1, 0) for mu in (1e-2, 1e-6)]
+    cases.append((BATCH, NSTEPS, NX, NU, NU, 1e-2, "rel"))
+    reports, variants = [], set()
+    for Bsz, N, nx, nu, nc, mu_val, mode in cases:
         lq = lqr_from_numpy(random_lq_arrays(rng, Bsz, N, nx, nu, nc), device=dev,
                             dtype=torch.float32)
         knots = knots_of(lq)
-        mu = torch.full((Bsz,), 1e-2, device=dev)
+        mu = torch.full((Bsz,), mu_val, device=dev)
+        variants.add(FR.backward_variant(nx, nu, nc))
         gk, vk = FR.backward_sweep_batched(knots, mu)
         torch.cuda.synchronize()
         gp, vp = FR.backward_sweep_batched_ref(knots, mu)
@@ -191,11 +231,14 @@ def kernels_phase(dev):
         for name, a, b in zip(("xs", "us", "vs", "lbds"), fk, fp):
             errs_f[name] = max_err(a, b)
             check(errs_f[name] <= tol(b, 1e-3), f"K2 {name} B={Bsz} nc={nc}: {errs_f[name]}")
-        print(f"kernels B={Bsz} N={N} nx={nx} nu={nu} nc={nc}: K1 max abs err "
+        print(f"kernels B={Bsz} N={N} nx={nx} nu={nu} nc={nc} mu={mu_val:g} (K1 "
+              f"{FR.backward_variant(nx, nu, nc)} widths): K1 max abs err "
               f"{json.dumps(errs_b)}; K2 max abs err {json.dumps(errs_f)}")
         reports.append(dict(lq=lq, knots=knots, mu=mu, gp=gp, vp=vp, x0=x0, l0=l0,
                       err_b=max(errs_b.values()), err_f=max(errs_f.values()),
                       dims=(Bsz, N + 1, nx, nu, nc)))
+
+    check(variants == {"bench", "runtime"}, f"both K1 instantiations checked: {variants}")
 
     # KKT residual of the fused solve on the first small problem, at
     # test_gar_pallas.py's float32 gate (5e-4)
@@ -220,15 +263,21 @@ def kernels_phase(dev):
     k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
     b1, by1 = bound_ms(*backward_cost(Bsz, L, nx, nu, nc, 1))
     b2, by2 = bound_ms(*forward_cost(Bsz, L, nx, nu, nc))
+    # K1 at the MPC batch: the first MPC_BATCH problems of the same knots
+    kn64 = type(kn)(*(a[:MPC_BATCH].contiguous() for a in kn))
+    k1_ms64 = cuda_ms(lambda: FR.backward_sweep_batched(kn64, mu[:MPC_BATCH]), 10)
+    b1_64, _ = bound_ms(*backward_cost(MPC_BATCH, L, nx, nu, nc, 1))
     print(f"bench widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, "
           f"bound {b1:.4f} ms by {by1}); K2 {k2_ms:.4f} ms (plain {k2_plain:.3f} ms, "
           f"bound {b2:.4f} ms by {by2})")
+    print(f"bench widths B={MPC_BATCH} L={L}: K1 {k1_ms64:.4f} ms (bound {b1_64:.4f} ms)")
     return [
         dict(name="riccati_backward", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_backward.cu",
              replaces="aligator_tpu/gar/pallas_riccati.py:225",
              max_abs_err=report["err_b"], ms=k1_ms, plain_ms=k1_plain,
-             bound_ms=b1, bound_by=by1, library_ms=None),
+             bound_ms=b1, bound_by=by1, library_ms=None,
+             ms_b64=k1_ms64, bound_ms_b64=b1_64),
         dict(name="riccati_forward", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_forward.cu",
              replaces="aligator_tpu/gar/pallas_riccati.py:549",
@@ -430,10 +479,7 @@ def main() -> int:
     t0 = time.perf_counter()
     logs = cuda_build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
-    for name, log in logs.items():
-        for line in log.splitlines():
-            if "registers" in line or "spill" in line:
-                print(f"  {name}: {line.strip()}")
+    print_ptxas(logs)
 
     kernels = kernels_phase(dev) + probe_phase(dev)
     launches = slice_phase(dev)
