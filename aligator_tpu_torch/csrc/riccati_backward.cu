@@ -699,7 +699,7 @@ long long riccati_backward_smem_bytes(int nx, int nu, int nc) {
 // Which instantiation serves these dims: 1 the bench widths (nx = 56,
 // nu = nc = 22, fixed at compile time), 0 the one that reads its widths at
 // run time; -1 if nu or nc exceeds 32 (a factor's rows are a warp's
-// lanes), -2 if the Q̂ tiles (8 × 4 each) outnumber the block's threads.
+// lanes), -2 if the Q̂ tiles (4 × 4 each) outnumber the block's threads.
 int riccati_backward_variant(int nx, int nu, int nc) {
   if (nu > kChainMax || nc > kChainMax) return -1;
   if (RtDims{nx, nu, nc}.nq() > kThreads) return -2;

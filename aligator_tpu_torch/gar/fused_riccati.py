@@ -6,8 +6,11 @@ Two hand-written CUDA kernels for Hopper (``sm_90a``) carry this module:
 * ``csrc/riccati_backward.cu`` — the reverse-time sweep t = N..0, one
   thread block per problem, the cost-to-go kept in shared memory between
   steps (replaces the Pallas ``_backward_kernel``);
-* ``csrc/riccati_forward.cu`` — the closed-loop rollout, one block per
-  problem, the state in shared memory (replaces ``_forward_kernel``).
+* ``csrc/riccati_forward.cu`` — the closed-loop rollout in two kernels
+  (replaces ``_forward_kernel``): the state chain x⁺ = yff + Acl x, one
+  block per problem, the next knots' Acl and yff copied ahead by cp.async
+  into a ring in shared memory; then u, v and λ of every knot from the
+  stored states, over a grid of (knot chunk, problem).
 
 The public API matches the JAX module: ``backward_sweep_batched``,
 ``forward_sweep_batched``, ``backward``, ``forward`` and ``solve``. An
@@ -240,9 +243,88 @@ backward_sweep_batched.launches = 0
 
 def forward_sweep_batched_ref(gains: Gains, vms: CostToGo, x0: torch.Tensor,
                               lbd0: torch.Tensor):
-    """Plain torch version of the forward kernel: the serial rollout of
+    """Plain torch version of the forward kernels: the serial rollout of
     ``gar.riccati`` with a zero-width θ."""
     return _riccati.forward_sweep(gains, vms, x0, lbd0, x0.new_zeros((x0.shape[0], 0)))
+
+
+# The forward kernels' instantiations: nx = 56 compiled in, or nx read at
+# launch up to FORWARD_MAX_NX (a ring of four knots of Acl in shared memory).
+FORWARD_BENCH_NX = 56
+FORWARD_MAX_NX = 112
+
+
+def forward_variant(nx: int, ptrs) -> tuple:
+    """Which instantiation of the forward kernels serves state width ``nx``,
+    and the width of their copies in floats: ``("bench", w)`` for nx = 56
+    (compiled in; nu and nc only count rows and are read at launch) or
+    ``("runtime", w)`` for any other nx up to 112. ``w`` is 4 (16-byte
+    copies) where nx % 4 == 0 and every address in ``ptrs`` (those of the
+    inputs the kernels copy by rows: K, Z, Acl, Vxx, yff) is 16-byte
+    aligned, else 2 (8 bytes) or 1."""
+    if not 1 <= nx <= FORWARD_MAX_NX:
+        raise ValueError(f"nx={nx}: the forward kernels take 1 <= nx <= {FORWARD_MAX_NX}")
+    vec = next(w for w in (4, 2, 1)
+               if nx % w == 0 and all(p % (4 * w) == 0 for p in ptrs))
+    return ("bench" if nx == FORWARD_BENCH_NX else "runtime"), vec
+
+
+def forward_plan(gains: Gains, vms: CostToGo) -> tuple:
+    """``forward_variant`` of these inputs (the outputs are fresh
+    allocations, aligned for any width; the kernels' entry points check
+    them too)."""
+    rowwise = (gains.K, gains.Z, gains.Acl, vms.Vxx, gains.yff)
+    return forward_variant(gains.K.shape[-1], [a.data_ptr() for a in rowwise if a.numel()])
+
+
+def forward_chain_occupancy(nx: int) -> tuple:
+    """(blocks per SM, bytes of shared memory per block) of the forward
+    chain kernel at state width ``nx`` on the current card."""
+    variant = int(forward_variant(nx, ())[0] == "bench")
+    lib = cuda_build.load("riccati_forward")
+    n = lib.riccati_forward_chain_blocks_per_sm(nx, variant)
+    if n < 0:
+        raise RuntimeError(f"riccati_forward occupancy query failed: cudaError {-n}")
+    return n, lib.riccati_forward_chain_smem_bytes(nx, variant)
+
+
+def forward_halves(gains: Gains, vms: CostToGo, x0: torch.Tensor, lbd0: torch.Tensor):
+    """The two kernel launches of one forward sweep of CUDA tensors.
+
+    Checks the arguments and allocates the outputs; returns
+    ``(outs, (chain, rows))``: outs = (xs, us, vs, lbds), and two callables
+    that launch, on the current stream, the chain (xs) and then the rows
+    (us, vs, lbds from xs). Each raises if its launch is refused."""
+    Bsz, L, nu, nx = gains.K.shape
+    nc = gains.Z.shape[-2]
+    dev = x0.device
+    dims = dict(nx=nx, nu=nu, nc=nc)
+    named = dict(K=gains.K, Z=gains.Z, Acl=gains.Acl, Vxx=vms.Vxx,
+                 kff=gains.kff, zff=gains.zff, yff=gains.yff, vx=vms.vx)
+    _check_kernel_args(named, Bsz, L, dims, _GAIN_SHAPES, dev)
+    _vec_check("x0", x0, (Bsz, nx), dev)
+    _vec_check("lbd0", lbd0, (Bsz, nx), dev)
+    xs, us, vs, lbds = outs = tuple(
+        torch.empty((Bsz, L, n), dtype=torch.float32, device=dev) for n in (nx, nu, nc, nx))
+    name, vec = forward_plan(gains, vms)
+    variant = int(name == "bench")
+    lib = cuda_build.load("riccati_forward")
+    p = lambda *ts: tuple(t.data_ptr() for t in ts)
+
+    def launch(half, fn, *args):
+        with torch.cuda.device(dev):  # launch on the tensors' card
+            err = fn(*args, variant, vec, torch.cuda.current_stream(dev).cuda_stream)
+        if err != 0:
+            raise RuntimeError(f"riccati_forward {half} kernel launch failed: cudaError {err}")
+
+    chain = lambda: launch(
+        "chain", lib.riccati_forward_chain_f32,
+        *p(named["Acl"], named["yff"], x0, xs), Bsz, L, nx)
+    rows = lambda: launch(
+        "rows", lib.riccati_forward_rows_f32,
+        *p(named["K"], named["Z"], named["Vxx"], named["kff"], named["zff"], named["vx"],
+           lbd0, xs, us, vs, lbds), Bsz, L, nx, nu, nc)
+    return outs, (chain, rows)
 
 
 @named_scope("gar.fused.forward")
@@ -252,33 +334,18 @@ def forward_sweep_batched(gains: Gains, vms: CostToGo, x0: torch.Tensor,
 
     gains/vms: leading axes (B, N+1); x0, lbd0: (B, nx) (λ0 already
     zero-padded to nx). Returns (xs, us, vs, lbds), each (B, N+1, ·).
+    CPU tensors go through the plain version; CUDA tensors launch the two
+    kernels of ``csrc/riccati_forward.cu``, and ``launches`` counts sweeps.
     """
     if x0.device.type == "cpu":
         return forward_sweep_batched_ref(gains, vms, x0, lbd0)
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
-    Bsz, L, nu, nx = gains.K.shape
-    nc = gains.Z.shape[-2]
-    dims = dict(nx=nx, nu=nu, nc=nc)
-    named = dict(K=gains.K, Z=gains.Z, Acl=gains.Acl, Vxx=vms.Vxx,
-                 kff=gains.kff, zff=gains.zff, yff=gains.yff, vx=vms.vx)
-    _check_kernel_args(named, Bsz, L, dims, _GAIN_SHAPES, x0.device)
-    _vec_check("x0", x0, (Bsz, nx), x0.device)
-    _vec_check("lbd0", lbd0, (Bsz, nx), x0.device)
-
-    outs = [torch.empty((Bsz, L, n), dtype=torch.float32, device=x0.device)
-            for n in (nx, nu, nc, nx)]
-    fn = cuda_build.load("riccati_forward").riccati_forward_f32
-    with torch.cuda.device(x0.device):  # launch on the tensors' card
-        err = fn(
-            *(a.data_ptr() for a in named.values()), x0.data_ptr(), lbd0.data_ptr(),
-            *(o.data_ptr() for o in outs), Bsz, L, nx, nu, nc,
-            torch.cuda.current_stream(x0.device).cuda_stream,
-        )
-    if err != 0:
-        raise RuntimeError(f"riccati_forward kernel launch failed: cudaError {err}")
+    outs, halves = forward_halves(gains, vms, x0, lbd0)
+    for launch in halves:
+        launch()
     forward_sweep_batched.launches += 1
-    return tuple(outs)
+    return outs
 
 
 forward_sweep_batched.launches = 0

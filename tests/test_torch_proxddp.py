@@ -161,6 +161,29 @@ def test_cost_scale_and_full_refinement_keep_the_optimum():
         np.testing.assert_allclose(res.lams.numpy(), base.lams.numpy(), atol=1e-6)
 
 
+@pytest.mark.parametrize("kw", [
+    dict(multiplier_update_mode="primal"),
+    dict(multiplier_update_mode="primal_dual"),
+    # armijo with a contraction range down to 0.1 backtracks through the
+    # interpolation on fixture 0: the two rules' iterates differ by 0.26
+    dict(sa_strategy="armijo", ls_interp="quadratic", ls_contraction_min=0.1),
+    dict(sa_strategy="armijo", ls_interp="bisection", ls_contraction_min=0.1),
+    dict(riccati_refine=0),
+    dict(riccati_refine=2),
+    dict(cost_scale=0.5, lq_refine_full=1),
+    dict(mu_dyn_scale=1.0),
+    dict(dual_tol=1e-4),
+], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
+def test_proxddp_f64_settings_match_jax_vmap(kw):
+    """Settings beside the defaults, each against the vmapped JAX solve in
+    float64: iterates to 1e-12, equal conv, num_iters and al_iter."""
+    f = _fixture(0)
+    base = dict(tol=1e-8, mu_init=1e-2, max_iters=30, **kw)
+    res_j = _jax_vmap_solve(f, _x0s(), JSettings(**base), jnp.float64)
+    res_t = port_solve(_port_problem(f, _x0s(), torch.float64), ProxDDPSettings(**base))
+    _compare(res_t, res_j, 1e-12)
+
+
 @pytest.mark.parametrize("kw, item", [
     (dict(sa_strategy="filter"), "A26"),
     (dict(rollout_type="nonlinear"), "A27"),
