@@ -5,7 +5,7 @@ raise without one unless ``device="cpu"`` is passed."""
 
 from __future__ import annotations
 
-from typing import Mapping, Optional
+from typing import Mapping, Optional, Sequence
 
 import numpy as np
 import torch
@@ -16,6 +16,7 @@ from aligator_tpu_torch.dynamics.linear import LinearDiscreteDynamics
 from aligator_tpu_torch.functions.basic import ControlErrorResidual
 from aligator_tpu_torch.gar.lqr_problem import LQRProblem
 from aligator_tpu_torch.manifolds.vector import VectorSpace
+from aligator_tpu_torch.multibody.model import FrameSpec, JointSpec, MultibodyModel
 from aligator_tpu_torch.problem import TrajOptProblem, build_problem
 from aligator_tpu_torch.utils.device import resolve_device
 from aligator_tpu_torch.utils.tree import tree_map
@@ -73,3 +74,27 @@ def problem_from_numpy(A, B, c, Q, R, Qf, x0, N: int, lower=None, upper=None,
         shared(QuadraticCost.create(t(Qf), t(R))),
         constraints=constraints, device=device, dtype=dt,
     )
+
+
+MULTIBODY_LEAVES = ("jplace_R", "jplace_p", "mass", "com", "inertia", "frame_R", "frame_p",
+                    "gravity")
+
+
+def multibody_model_from_numpy(arrays: Mapping[str, np.ndarray], joints: Sequence,
+                               parents: Sequence[int], frames: Sequence, device=None,
+                               dtype: Optional[torch.dtype] = None) -> MultibodyModel:
+    """The port's :class:`MultibodyModel` from a model's leaves as numpy
+    arrays (``MULTIBODY_LEAVES``) and its static tree: ``joints`` as
+    (jtype, axis) pairs, ``parents`` as joint indices (-1 for the world),
+    ``frames`` as (name, parent_joint) pairs. ``dtype`` defaults to that
+    of ``arrays["mass"]``."""
+    device = resolve_device(device)
+    if dtype is None:
+        dtype = torch.from_numpy(np.zeros(0, dtype=np.asarray(arrays["mass"]).dtype)).dtype
+    return MultibodyModel.create(
+        *(arrays[k] for k in MULTIBODY_LEAVES),
+        joints=tuple(JointSpec(jtype, None if axis is None else tuple(float(a) for a in axis))
+                     for jtype, axis in joints),
+        parents=tuple(int(p) for p in parents),
+        frames=tuple(FrameSpec(name, int(j)) for name, j in frames),
+        dtype=dtype, device=device)

@@ -1,5 +1,6 @@
-"""Cost library (port of part of ``aligator_tpu.costs``: ``Cost`` and
-``QuadraticCost``; the residual, log-barrier, direct-sum and stack costs
+"""Cost library (port of part of ``aligator_tpu.costs``: ``Cost``,
+``QuadraticCost``, ``QuadraticResidualCost`` with its state and control
+forms, and ``CostStack``; the constant, log-barrier and direct-sum costs
 wait in ROADMAP queue A).
 
 Costs are dataclasses whose tensor fields are weights (stackable over the
@@ -11,6 +12,7 @@ is quadratic.
 from __future__ import annotations
 
 import dataclasses
+from typing import Any, Tuple
 
 import torch
 from torch.func import grad, hessian
@@ -40,6 +42,11 @@ class Cost:
         """(Lx (ndx,), Lu (nu,)) — tangent-space gradient."""
         g = grad(self._tangent_fn(space, x, u))(self._zero_tangent(space, x, u))
         return g[: space.ndx], g[space.ndx :]
+
+    def derivatives(self, space: Manifold, x, u):
+        """(Lx, Lu, Lxx, Lxu, Luu) in one call: what the problem layer
+        asks for, so a cost can share work between the two orders."""
+        return (*self.gradients(space, x, u), *self.hessians(space, x, u))
 
     def hessians(self, space: Manifold, x, u):
         """(Lxx, Lxu, Luu) — exact tangent-space Hessian blocks."""
@@ -85,3 +92,77 @@ class QuadraticCost(Cost):
 
     def hessians(self, space, x, u):
         return self.Wx, self.N, self.Wu
+
+
+@dataclasses.dataclass(frozen=True)
+class QuadraticResidualCost(Cost):
+    """½ ‖r(x, u)‖²_W with the Gauss-Newton Hessian JᵀWJ."""
+
+    residual: Any  # a StageFunction
+    W: torch.Tensor
+
+    def value(self, space, x, u):
+        r = self.residual.value(x, u)
+        return 0.5 * r @ self.W @ r
+
+    def gradients(self, space, x, u):
+        return self.derivatives(space, x, u)[:2]
+
+    def hessians(self, space, x, u):
+        return self.derivatives(space, x, u)[2:]
+
+    def derivatives(self, space, x, u):
+        r, Jx = self.residual.value_and_jac_x(space, x, u)
+        Ju = self.residual.jac_u(space, x, u)
+        Wr, WJx, WJu = self.W @ r, self.W @ Jx, self.W @ Ju
+        return Jx.mT @ Wr, Ju.mT @ Wr, Jx.mT @ WJx, Jx.mT @ WJu, Ju.mT @ WJu
+
+
+def QuadraticStateCost(space: Manifold, target, W) -> QuadraticResidualCost:
+    """½‖x ⊖ x_ref‖²_W."""
+    from aligator_tpu_torch.functions.basic import StateErrorResidual
+
+    return QuadraticResidualCost(
+        residual=StateErrorResidual(target=torch.as_tensor(target), space=space),
+        W=torch.as_tensor(W))
+
+
+def QuadraticControlCost(target, W) -> QuadraticResidualCost:
+    """½‖u − u_ref‖²_W."""
+    from aligator_tpu_torch.functions.basic import ControlErrorResidual
+
+    return QuadraticResidualCost(residual=ControlErrorResidual(target=torch.as_tensor(target)),
+                                 W=torch.as_tensor(W))
+
+
+@dataclasses.dataclass(frozen=True)
+class CostStack(Cost):
+    """Weighted sum of costs. The components are a tuple of fixed length;
+    the weights are tensor leaves (per stage once stacked)."""
+
+    components: Tuple[Any, ...]
+    weights: Tuple[Any, ...]
+
+    @classmethod
+    def create(cls, *pairs):
+        comps, w = zip(*pairs) if pairs else ((), ())
+        return cls(components=tuple(comps),
+                   weights=tuple(torch.as_tensor(x, dtype=torch.float64) for x in w))
+
+    def value(self, space, x, u):
+        total = 0.0
+        for c, w in zip(self.components, self.weights):
+            total = total + w * c.value(space, x, u)
+        return total
+
+    def gradients(self, space, x, u):
+        return self.derivatives(space, x, u)[:2]
+
+    def hessians(self, space, x, u):
+        return self.derivatives(space, x, u)[2:]
+
+    def derivatives(self, space, x, u):
+        out = (0.0,) * 5
+        for c, w in zip(self.components, self.weights):
+            out = tuple(a + w * b for a, b in zip(out, c.derivatives(space, x, u)))
+        return out

@@ -45,8 +45,8 @@
 //    that accumulates a tile of Q̂ (on or below the diagonal) or q̂ keeps it
 //    in registers through the KKT solve and writes the same tile of Vxx,
 //    mirrored, and vx: Q̂ never goes through shared memory. Widths are
-//    template arguments: one instantiation for the bench widths and one
-//    that reads them at run time.
+//    template arguments: one instantiation for the bench widths, one for
+//    the talos walk's (nc = 0), and one that reads them at run time.
 // 3. Loads. A knot's A, B, f, C, D, d do not depend on the carry (V, v):
 //    the next knot's are copied with cp.async (16-byte copies where the
 //    alignment allows) into a second buffer while the current knot
@@ -657,13 +657,23 @@ __global__ void __launch_bounds__(kThreads, 2) riccati_backward_kernel(
 
 using RtDims = Dims<kRt, kRt, kRt>;
 using BenchDims = Dims<56, 22, 22>;  // lqr56, the bench's Talos-reduced widths
+using WalkDims = Dims<56, 22, 0>;    // the talos walk: ndx = 56, nu = 22, no constraints
 constexpr int kMaxDevices = 64;
 
-bool is_bench(int nx, int nu, int nc) { return nx == 56 && nu == 22 && nc == 22; }
+// Which instantiation serves these widths: 1 the bench's, 2 the walk's,
+// 0 the one that reads its widths at launch.
+int variant_of(int nx, int nu, int nc) {
+  if (nx == 56 && nu == 22 && nc == 22) return 1;
+  if (nx == 56 && nu == 22 && nc == 0) return 2;
+  return 0;
+}
 
-const void* pick(int nx, int nu, int nc) {
-  return is_bench(nx, nu, nc) ? (const void*)&riccati_backward_kernel<56, 22, 22>
-                              : (const void*)&riccati_backward_kernel<kRt, kRt, kRt>;
+const void* pick(int variant) {
+  switch (variant) {
+    case 1: return (const void*)&riccati_backward_kernel<56, 22, 22>;
+    case 2: return (const void*)&riccati_backward_kernel<56, 22, 0>;
+    default: return (const void*)&riccati_backward_kernel<kRt, kRt, kRt>;
+  }
 }
 
 size_t smem_bytes(int nx, int nu, int nc) {
@@ -672,15 +682,16 @@ size_t smem_bytes(int nx, int nu, int nc) {
 
 // Raises an instantiation's dynamic shared-memory limit on the current
 // device, once per device and only when `smem` is more than was set before.
-cudaError_t ensure_smem_limit(const void* fn, bool bench, size_t smem) {
-  static size_t smem_limit[2][kMaxDevices] = {};
+cudaError_t ensure_smem_limit(int variant, size_t smem) {
+  static size_t smem_limit[3][kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  size_t& lim = smem_limit[bench ? 1 : 0][dev];
+  size_t& lim = smem_limit[variant][dev];
   if (smem > lim) {
-    err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    err = cudaFuncSetAttribute(pick(variant), cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)smem);
     if (err != cudaSuccess) return err;
     lim = smem;
   }
@@ -697,13 +708,14 @@ long long riccati_backward_smem_bytes(int nx, int nu, int nc) {
 }
 
 // Which instantiation serves these dims: 1 the bench widths (nx = 56,
-// nu = nc = 22, fixed at compile time), 0 the one that reads its widths at
-// run time; -1 if nu or nc exceeds 32 (a factor's rows are a warp's
-// lanes), -2 if the Q̂ tiles (4 × 4 each) outnumber the block's threads.
+// nu = nc = 22) and 2 the walk's (nx = 56, nu = 22, nc = 0), each fixed
+// at compile time, 0 the one that reads its widths at run time; -1 if nu
+// or nc exceeds 32 (a factor's rows are a warp's lanes), -2 if the Q̂
+// tiles (4 × 4 each) outnumber the block's threads.
 int riccati_backward_variant(int nx, int nu, int nc) {
   if (nu > kChainMax || nc > kChainMax) return -1;
   if (RtDims{nx, nu, nc}.nq() > kThreads) return -2;
-  return is_bench(nx, nu, nc) ? 1 : 0;
+  return variant_of(nx, nu, nc);
 }
 
 // Blocks of the kernel that one SM of the current device holds at once at
@@ -711,12 +723,12 @@ int riccati_backward_variant(int nx, int nu, int nc) {
 // cudaOccupancyMaxActiveBlocksPerMultiprocessor gives it; a cudaError as
 // a negative number.
 int riccati_backward_blocks_per_sm(int nx, int nu, int nc) {
-  const void* fn = pick(nx, nu, nc);
+  const int variant = variant_of(nx, nu, nc);
   const size_t smem = smem_bytes(nx, nu, nc);
-  cudaError_t err = ensure_smem_limit(fn, is_bench(nx, nu, nc), smem);
+  cudaError_t err = ensure_smem_limit(variant, smem);
   if (err != cudaSuccess) return -(int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, fn, kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pick(variant), kThreads, smem);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
@@ -729,17 +741,21 @@ int riccati_backward_f32(const void* Q, const void* S, const void* R, const void
                          void* vx, int batch, int L, int nx, int nu, int nc, int refine_steps,
                          void* stream) {
   const size_t smem = smem_bytes(nx, nu, nc);
-  const bool bench = is_bench(nx, nu, nc);
-  const cudaError_t err = ensure_smem_limit(pick(nx, nu, nc), bench, smem);
+  const int variant = variant_of(nx, nu, nc);
+  const cudaError_t err = ensure_smem_limit(variant, smem);
   if (err != cudaSuccess) return (int)err;
   const Knots g{(const float*)Q, (const float*)S, (const float*)R, (const float*)q,
                 (const float*)r, (const float*)A, (const float*)Bm, (const float*)f,
                 (const float*)C, (const float*)D, (const float*)d};
   auto out = [](void* p) { return (float*)p; };
-  if (bench) {
+  if (variant == 1) {
     riccati_backward_kernel<56, 22, 22><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
         g, (const float*)mu, out(K), out(Z), out(kff), out(zff), out(yff), out(Acl),
         out(Vxx), out(vx), L, BenchDims{nx, nu, nc}, refine_steps);
+  } else if (variant == 2) {
+    riccati_backward_kernel<56, 22, 0><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
+        g, (const float*)mu, out(K), out(Z), out(kff), out(zff), out(yff), out(Acl),
+        out(Vxx), out(vx), L, WalkDims{nx, nu, nc}, refine_steps);
   } else {
     riccati_backward_kernel<kRt, kRt, kRt><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
         g, (const float*)mu, out(K), out(Z), out(kff), out(zff), out(yff), out(Acl),

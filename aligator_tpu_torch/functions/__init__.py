@@ -7,3 +7,4 @@ from aligator_tpu_torch.functions.basic import (
     ControlErrorResidual,
     StateErrorResidual,
 )
+from aligator_tpu_torch.functions.frames import FramePlacementResidual

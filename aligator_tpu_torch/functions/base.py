@@ -38,6 +38,11 @@ class StageFunction:
     def jac_u(self, space: Manifold, x, u) -> torch.Tensor:
         return jacfwd(lambda uu: self.value(x, uu))(u)
 
+    def value_and_jac_x(self, space: Manifold, x, u):
+        """(value, jac_x) in one call; a subclass whose Jacobian comes from
+        AD can return the value from the same pass."""
+        return self.value(x, u), self.jac_x(space, x, u)
+
 
 @dataclasses.dataclass(frozen=True)
 class UnaryFunction(StageFunction):

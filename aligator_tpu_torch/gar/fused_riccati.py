@@ -159,13 +159,14 @@ def _backward_variant(nx: int, nu: int, nc: int) -> int:
 
 
 def backward_variant(nx: int, nu: int, nc: int) -> str:
-    """Which instantiation of the backward kernel serves these dims:
-    ``"bench"`` (nx = 56, nu = nc = 22, widths fixed at compile time) or
-    ``"runtime"`` (widths read at launch)."""
+    """Which instantiation of the backward kernel serves these dims, widths
+    fixed at compile time: ``"bench"`` (nx = 56, nu = nc = 22) or ``"walk"``
+    (nx = 56, nu = 22, nc = 0, the talos walk); or ``"runtime"`` (widths
+    read at launch)."""
     v = _backward_variant(nx, nu, nc)
     if v < 0:
         raise ValueError(f"dims nx={nx}, nu={nu}, nc={nc} are outside the backward kernel")
-    return "bench" if v == 1 else "runtime"
+    return {1: "bench", 2: "walk"}.get(v, "runtime")
 
 
 def backward_blocks_per_sm(nx: int, nu: int, nc: int) -> int:

@@ -78,3 +78,8 @@ class Manifold:
         from aligator_tpu_torch.manifolds.vector import VectorSpace
 
         return VectorSpace(self.ndx)
+
+    def __mul__(self, other: "Manifold") -> "Manifold":
+        from aligator_tpu_torch.manifolds.product import CartesianProduct
+
+        return CartesianProduct((self, other))

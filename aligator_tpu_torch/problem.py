@@ -237,8 +237,7 @@ def compute_derivatives(problem: TrajOptProblem, xs: torch.Tensor,
 
     def stage(objs, x, u, x_next):
         dyn, cost, cstrs = objs
-        Lx, Lu = cost.gradients(space, x, u)
-        Lxx, Lxu, Luu = cost.hessians(space, x, u)
+        Lx, Lu, Lxx, Lxu, Luu = cost.derivatives(space, x, u)
         A, B = dyn.defect_jacobians(space, x, u, x_next)
         Cx, Cu = cstr_jacs(cstrs, x, u)
         return Lx, Lu, Lxx, Lxu, Luu, A, B, Cx, Cu
@@ -251,8 +250,7 @@ def compute_derivatives(problem: TrajOptProblem, xs: torch.Tensor,
     def terminal(objs, x):
         tcost, tcstrs = objs
         u0 = x.new_zeros(nu)
-        LxN, _ = tcost.gradients(space, x, u0)
-        LxxN, _, _ = tcost.hessians(space, x, u0)
+        LxN, _, LxxN, _, _ = tcost.derivatives(space, x, u0)
         CxN, _ = cstr_jacs(tcstrs, x, u0)
         return LxN, LxxN, CxN
 

@@ -13,11 +13,15 @@ beside their bounds, runs the layout probe (the port of
 then timed per construct beside its library call), drives the main path
 — the batched ProxDDP solve of the lqr56 box-constrained LQR (B = 256,
 N = 100, 2 iterations, float32) and three MPC steps — through the
-kernels, checks the results, and prints one JSON line of kernel reports
-and a final status line. Any failed check raises, and the script exits
-non-zero (the one exception, K1's recorded fault at µ = 1e-6, is printed
-with its verdict; see ``K1_KNOWN_FAULTS``); without a CUDA device it exits
-non-zero before doing anything.
+kernels, then the second path: the talos walk at its published size
+(N = 195, 16 perturbed scenarios, float32, solved to convergence through
+K1's walk instantiation and K2, against the serial path and a float64
+solve on the card) and its MPC cycle at B = 1. It checks the results and
+prints one JSON line of kernel reports and a final status line. Any
+failed check raises, and the script exits non-zero (the one exception,
+K1 at the bench widths and µ = 1e-6, where the JAX Pallas kernel fails
+too, is printed with its verdict; see ``K1_REFERENCE_BEHAVIOUR``);
+without a CUDA device it exits non-zero before doing anything.
 """
 
 from __future__ import annotations
@@ -32,10 +36,13 @@ import numpy as np
 import torch
 
 from aligator_tpu_torch.convert import lqr_from_numpy, problem_from_numpy
+from aligator_tpu_torch.examples import talos_walk as TW
 from aligator_tpu_torch.gar import fused_riccati as FR
 from aligator_tpu_torch.gar.riccati import knots_of
 from aligator_tpu_torch.gar.utils import lqr_kkt_error
 from aligator_tpu_torch.mpc import init_mpc_state, mpc_step
+from aligator_tpu_torch.multibody.algorithms import frame_placement
+from aligator_tpu_torch.problem import compute_derivatives, us_default_init, xs_default_init
 from aligator_tpu_torch.probes import layout_probe as LP
 from aligator_tpu_torch.solvers.proxddp import ProxDDPSettings, solve
 from aligator_tpu_torch.utils import cuda_build
@@ -270,13 +277,14 @@ def k2_halves(g, v, x0, l0):
     return out
 
 
-# A fault of K1 recorded in ROADMAP §C: at the bench widths and µ = 1e-6
-# its explicit inverse R̂⁻¹ loses its definiteness in float32, the
-# elimination of S = µI + D·R̂⁻¹·Dᵀ meets a non-positive pivot, and the gains
-# come out NaN where the plain version's are finite. The case runs under
-# the same gate and prints its verdict; a failure there is reported, not
-# raised, so that the rest of the run is still checked.
-K1_KNOWN_FAULTS = {(NX, NU, NU, 1e-6): "C5"}
+# K1 at the bench widths and µ = 1e-6: its explicit inverse R̂⁻¹ loses its
+# definiteness in float32, the elimination of S = µI + D·R̂⁻¹·Dᵀ meets a
+# non-positive pivot, and the gains come out NaN where the plain version
+# (the serial Cholesky recursion) is finite. The JAX Pallas kernel fails
+# on the same input (tests/test_torch_walk.py; ROADMAP §C lists it as
+# reference behaviour). The case runs under the same gate and prints its
+# verdict; a failure there is reported, not raised.
+K1_REFERENCE_BEHAVIOUR = {(NX, NU, NU, 1e-6): "reference behaviour (the TPU kernel fails here too)"}
 
 
 def kernels_phase(dev):
@@ -308,7 +316,7 @@ def kernels_phase(dev):
         l0 = torch.randn(Bsz, nx, device=dev, generator=gen)
 
         errs_b, failed = {}, []
-        fault = K1_KNOWN_FAULTS.get((nx, nu, nc, mu_val))
+        known = K1_REFERENCE_BEHAVIOUR.get((nx, nu, nc, mu_val))
         for name, atol in (("kff", 2e-4), ("zff", 2e-4), ("yff", 2e-4), ("K", 2e-4),
                            ("Z", 2e-4), ("Acl", 2e-4), ("Vxx", 1e-3), ("vx", 1e-3)):
             a, b = (getattr(gk, name), getattr(gp, name)) if hasattr(gk, name) else (
@@ -316,18 +324,18 @@ def kernels_phase(dev):
             check(bool(torch.isfinite(b).all()), f"plain K1 {name} finite at mu={mu_val:g}")
             errs_b[name] = max_err(a, b)
             ok = errs_b[name] <= tol(b, atol, mode)
-            if fault is None:
+            if known is None:
                 check(ok, f"K1 {name} B={Bsz} nc={nc} mu={mu_val:g}: {errs_b[name]}")
             elif not ok:
                 failed.append(f"{name} ({int((~torch.isfinite(a)).sum())} non-finite)")
-        if fault is not None:
+        if known is not None:
             bad = int((~torch.isfinite(gk.kff)).flatten(1).any(1).sum())
             print(f"K1 at B={Bsz} N={N} nx={nx} nu={nu} nc={nc} mu={mu_val:g} "
                   f"{'FAILS' if failed else 'passes'} its gate (1e-4·max|·|)"
                   f"{' on ' + ', '.join(failed) if failed else ''}; problems with a "
                   f"non-finite kff {bad} of {Bsz}; plain version max|Vxx| "
                   f"{float(vp.Vxx.abs().max()):.4g}, max|kff| {float(gp.kff.abs().max()):.4g}: "
-                  f"fault {fault}, ROADMAP §C")
+                  f"{known}, ROADMAP §C")
         errs_f = check_k2(f"B={Bsz} nc={nc}", gp, vp, x0, l0, mode, k2_seen)
         print(f"kernels B={Bsz} N={N} nx={nx} nu={nu} nc={nc} mu={mu_val:g} (K1 "
               f"{FR.backward_variant(nx, nu, nc)} widths, K2 "
@@ -532,25 +540,23 @@ def slice_phase(dev):
     return launches
 
 
-def profile_solve(problem):
-    """Where the fused solve's time goes: one solve traced by
-    torch.profiler, the device's busy and idle share of its wall time, and
-    the kernels that took the most device time."""
+def trace_device(fn):
+    """Run ``fn`` once under torch.profiler: (host wall µs, the device
+    kernels, their busy time as the union of their intervals in µs, device
+    time by kernel name). Empty when the profiler records no device time."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
-        solve(problem, bench_settings("pallas"))
+        fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events, without the record_function ranges mirrored there
     kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
                and not getattr(e, "is_user_annotation", False)]
     if not kernels:
-        print("profile: the profiler recorded no device time (not measured)")
-        return
-    # device busy time = the union of the kernels' intervals
+        return wall_us, [], 0.0, {}
     spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for a, b in spans[1:]:
@@ -563,6 +569,18 @@ def profile_solve(problem):
     by_name = {}
     for e in kernels:
         by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+    return wall_us, kernels, busy, by_name
+
+
+def profile_solve(problem):
+    """Where the fused solve's time goes: one solve traced by
+    torch.profiler, the device's busy and idle share of its wall time, and
+    the kernels that took the most device time."""
+    wall_us, kernels, busy, by_name = trace_device(
+        lambda: solve(problem, bench_settings("pallas")))
+    if not kernels:
+        print("profile: the profiler recorded no device time (not measured)")
+        return
     top = sorted(by_name.items(), key=lambda kv: -kv[1])[:6]
     print(f"profile: traced solve wall {wall_us / 1e3:.3f} ms, {len(kernels)} device "
           f"kernels, sum of kernel times {sum(by_name.values()) / 1e3:.3f} ms, device "
@@ -601,6 +619,207 @@ def mpc_phase(dev):
     check(k1 == k2 >= MPC_STEPS, "MPC kernel launch counts")
 
 
+# The talos walk (bench.py:317-437): T_ss = 60, T_ds = 25, so N = 195;
+# nq = 29, nv = 28, ndx = 56, nu = 22, nc = 0; 16 scenarios whose joint
+# velocities are perturbed by 0.01·N(0, 1) from default_rng(7).
+WALK_TSS, WALK_TDS, WALK_BATCH = 60, 25, 16
+WALK_SETTINGS = dict(tol=1e-4, dual_tol=1e-4, mu_init=1e-8, max_iters=40, riccati_refine=1,
+                     cost_scale=1e-4, lq_refine_full=1)
+WALK_MPC_SETTLE, WALK_MPC_STEPS = 3, 5
+
+
+def k1_walk_check(dev):
+    """K1's walk instantiation <56, 22, 0> against its plain version at the
+    walk's batch and horizon (B = 16, N = 195), at the walk's µ_init and
+    at 1e-2, under the bench-widths gate 1e-4·max|·|; then K1 and K2 timed
+    there and K1 at the MPC batch B = 1, each beside its bound."""
+    Bsz, N, nx, nu, nc = WALK_BATCH, 2 * WALK_TSS + 3 * WALK_TDS, NX, NU, 0
+    check(FR.backward_variant(nx, nu, nc) == "walk", "the walk's widths take K1's walk "
+          "instantiation")
+    lq = lqr_from_numpy(random_lq_arrays(np.random.default_rng(5), Bsz, N, nx, nu, nc),
+                        device=dev, dtype=torch.float32)
+    knots = knots_of(lq)
+    gains, errs = {}, {}
+    for mu_val in (1e-8, 1e-2):
+        mu = torch.full((Bsz,), mu_val, device=dev)
+        gk, vk = FR.backward_sweep_batched(knots, mu)
+        torch.cuda.synchronize()
+        gp, vp = FR.backward_sweep_batched_ref(knots, mu)
+        e = {}
+        for name in ("kff", "yff", "K", "Acl", "Vxx", "vx"):
+            a, b = (getattr(gk, name), getattr(gp, name)) if hasattr(gk, name) else (
+                getattr(vk, name), getattr(vp, name))
+            e[name] = max_err(a, b)
+            check(e[name] <= tol(b, 0.0, "rel"), f"K1 walk {name} mu={mu_val:g}: {e[name]}")
+        gains[mu_val], errs[mu_val] = (gk, gp, vp), e
+        print(f"kernels K1 walk widths B={Bsz} N={N} nx={nx} nu={nu} nc={nc} mu={mu_val:g} "
+              f"({FR.backward_variant(nx, nu, nc)}): max abs err {json.dumps(e)}")
+    dk = max_err(gains[1e-8][0].kff, gains[1e-2][0].kff)
+    dK = max_err(gains[1e-8][0].K, gains[1e-2][0].K)
+    print(f"K1 walk widths: with nc = 0, mu from 1e-8 to 1e-2 moves kff by {dk:.3e} and K by "
+          f"{dK:.3e} (max |kff| {float(gains[1e-2][0].kff.abs().max()):.4g})")
+    _, gp, vp = gains[1e-8]
+    mu = torch.full((Bsz,), 1e-8, device=dev)
+    L = N + 1
+    k1_ms = cuda_ms(lambda: FR.backward_sweep_batched(knots, mu), 10)
+    k1_plain = cuda_ms(lambda: FR.backward_sweep_batched_ref(knots, mu), 2)
+    kn1 = type(knots)(*(a[:1].contiguous() for a in knots))
+    k1_ms1 = cuda_ms(lambda: FR.backward_sweep_batched(kn1, mu[:1]), 10)
+    gen = torch.Generator(device=dev).manual_seed(5)
+    x0 = torch.randn(Bsz, nx, device=dev, generator=gen)
+    l0 = torch.randn(Bsz, nx, device=dev, generator=gen)
+    errs_f = check_k2(f"walk B={Bsz}", gp, vp, x0, l0, "rel", set())
+    k2_ms = cuda_ms(lambda: FR.forward_sweep_batched(gp, vp, x0, l0), 20)
+    k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
+    b1, by1 = bound_ms(*backward_cost(Bsz, L, nx, nu, nc, 1))
+    b1_1, by1_1 = bound_ms(*backward_cost(1, L, nx, nu, nc, 1))
+    b2, by2 = bound_ms(*forward_cost(Bsz, L, nx, nu, nc))
+    per_sm = FR.backward_blocks_per_sm(nx, nu, nc)
+    print(f"walk widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, bound "
+          f"{b1:.4f} ms by {by1}, {k1_ms / b1:.1f}x; {k1_ms / L * 1e3:.2f} us per knot; "
+          f"{per_sm} blocks per SM); K1 at B=1 {k1_ms1:.4f} ms (bound {b1_1:.4f} ms by "
+          f"{by1_1}); K2 {k2_ms:.4f} ms (plain {k2_plain:.3f} ms, bound {b2:.4f} ms by {by2}); "
+          f"K2 max abs err {json.dumps(errs_f)}")
+    return [
+        dict(name="riccati_backward_walk", route="cuda",
+             source="aligator_tpu_torch/csrc/riccati_backward.cu",
+             replaces="aligator_tpu/gar/pallas_riccati.py:225",
+             instantiation="riccati_backward_kernel<56, 22, 0>", path="talos walk",
+             max_abs_err=max(max(e.values()) for e in errs.values()), ms=k1_ms,
+             plain_ms=k1_plain, bound_ms=b1, bound_by=by1, library_ms=None,
+             ms_b1=k1_ms1, bound_ms_b1=b1_1),
+        dict(name="riccati_forward_walk", route="cuda",
+             source="aligator_tpu_torch/csrc/riccati_forward.cu",
+             replaces="aligator_tpu/gar/pallas_riccati.py:549", path="talos walk",
+             max_abs_err=max(errs_f.values()), ms=k2_ms, plain_ms=k2_plain, bound_ms=b2,
+             bound_by=by2, library_ms=None),
+    ]
+
+
+def walk_phase(dev):
+    """The talos walk at its published size through the port's entry
+    points: 16 scenarios solved fused to convergence, against the serial
+    path and a float64 solve on the card; the traced kernel count of one
+    derivative pass; one capped solve traced for the device's share; the
+    MPC cycle at B = 1. Returns K1's and K2's launches per fused solve."""
+    t_phase = time.perf_counter()
+    problem, model = TW.create_walk_problem(WALK_TSS, WALK_TDS, dtype=torch.float32,
+                                            device=dev)
+    nv, nq, N = model.nv, model.nq, problem.nsteps
+    dv = 0.01 * np.random.default_rng(7).standard_normal((WALK_BATCH, nv)).astype(np.float32)
+    x0 = problem.x0.cpu().numpy()
+    x0s = np.concatenate([np.tile(x0[:nq], (WALK_BATCH, 1)), x0[nq:] + dv], axis=1)
+    prob16 = problem.replace_x0(torch.as_tensor(x0s, device=dev))
+    fused = ProxDDPSettings(lq_solver="pallas", **WALK_SETTINGS)
+
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(prob16, fused)
+    torch.cuda.synchronize()
+    first_s = time.perf_counter() - t0
+    counts = read_counts()
+    k1, k2 = counts["riccati_backward"], counts["riccati_forward"]
+    iters = res.num_iters.tolist()
+    print(f"walk: N={N} nx={problem.space.nx} ndx={problem.ndx} nu={problem.nu} "
+          f"B={WALK_BATCH}; fused solve (first call {first_s:.2f} s): conv "
+          f"{int(res.conv.sum())}/{WALK_BATCH}, iterations {iters}, prim max "
+          f"{float(res.prim_infeas.max()):.3e}, dual max {float(res.dual_infeas.max()):.3e}, "
+          f"K1 launches {k1}, K2 launches {k2}")
+    check(tuple(res.xs.shape) == (WALK_BATCH, N + 1, nq + nv)
+          and bool(torch.isfinite(res.xs).all()), "walk xs finite, of the expected shape")
+    check(bool(res.conv.all()), "every walk scenario converges")
+    check(float(res.prim_infeas.max()) <= 1e-4 and float(res.dual_infeas.max()) <= 1e-4,
+          "walk prim and dual <= 1e-4")
+    check(k1 == k2 >= max(iters) >= 1, "walk kernel launch counts")
+
+    res_s = solve(prob16, ProxDDPSettings(lq_solver="serial", **WALK_SETTINGS))
+    torch.cuda.synchronize()
+    rel = ((res.traj_cost - res_s.traj_cost).abs()
+           / res_s.traj_cost.abs().clamp(min=1.0)).max()
+    print(f"walk: fused vs serial on the card: traj cost max rel diff {float(rel):.3e}, "
+          f"iterations {iters} vs {res_s.num_iters.tolist()}, max|dxs| "
+          f"{max_err(res.xs, res_s.xs):.3e}")
+    check(bool(res_s.conv.all()), "every serial walk scenario converges")
+    check(float(rel) <= 1e-3, "walk fused vs serial traj cost to 1e-3")
+    check(bool((res.num_iters == res_s.num_iters).all()), "walk iteration counts agree")
+
+    p64, _ = TW.create_walk_problem(WALK_TSS, WALK_TDS, dtype=torch.float64, device=dev)
+    p64 = p64.replace_x0(torch.as_tensor(x0s[:1], dtype=torch.float64, device=dev))
+    r64 = solve(p64, ProxDDPSettings(lq_solver="serial", **WALK_SETTINGS))
+    c32, c64 = float(res.traj_cost[0]), float(r64.traj_cost[0])
+    print(f"walk: scenario 0 float32 fused traj cost {c32:.6f} vs float64 serial {c64:.6f} "
+          f"(rel {abs(c32 - c64) / max(1.0, abs(c64)):.3e}; f64 conv {bool(r64.conv[0])}, "
+          f"iterations {int(r64.num_iters[0])})")
+    check(abs(c32 - c64) <= 1e-3 * max(1.0, abs(c64)), "walk f32 vs f64 traj cost to 1e-3")
+    t_apex = WALK_TDS + WALK_TSS // 2
+    z = float(frame_placement(model, res.xs[0, t_apex, :nq], model.frame_id("right_sole")).p[2])
+    print(f"walk: right sole z at swing apex stage {t_apex}: {z:.4f} m (target "
+          f"{TW.SWING_APEX:.3f} m)")
+
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solve(prob16, fused)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    print(f"walk: fused solve of {WALK_BATCH} scenarios wall ms {walls} (median "
+          f"{float(np.median(walls)):.1f}), {max(iters)} iterations, K1 {k1} and K2 {k2} "
+          f"launches per solve")
+
+    xs, us = xs_default_init(prob16), us_default_init(prob16)
+    compute_derivatives(prob16, xs, us)
+    _, kern, busy, _ = trace_device(lambda: compute_derivatives(prob16, xs, us))
+    print(f"walk: one compute_derivatives call at B={WALK_BATCH}, N={N}: {len(kern)} device "
+          f"kernels, device busy {busy / 1e3:.3f} ms")
+    capped = ProxDDPSettings(lq_solver="pallas", **{**WALK_SETTINGS, "max_iters": 3})
+    wall_us, kern, busy, by_name = trace_device(lambda: solve(prob16, capped))
+    if kern:
+        k1_us = sum(v for n, v in by_name.items() if "riccati_backward" in n)
+        k2_us = sum(v for n, v in by_name.items() if "riccati_forward" in n)
+        top = sorted(by_name.items(), key=lambda kv: -kv[1])[:5]
+        print(f"walk profile (a solve capped at 3 iterations): wall {wall_us / 1e3:.1f} ms, "
+              f"{len(kern)} device kernels, sum of kernel times "
+              f"{sum(by_name.values()) / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, idle "
+              f"share {1 - busy / wall_us:.3f}; K1 {k1_us / 1e3:.3f} ms, K2 "
+              f"{k2_us / 1e3:.3f} ms ({(k1_us + k2_us) / max(busy, 1.0):.3f} of busy)")
+        for name, us in top:
+            print(f"  {us / 1e3:9.3f} ms  {name[:90]}")
+    else:
+        print("walk profile: the profiler recorded no device time (not measured)")
+
+    # the talos MPC cycle (bench.py:380-437): B = 1, 2 iterations, 2 AL turns
+    p1 = problem.replace_x0(problem.x0[None])
+    mpc_settings = ProxDDPSettings(lq_solver="pallas", **{**WALK_SETTINGS, "max_iters": 2,
+                                                          "max_al_iters": 2})
+    state = init_mpc_state(p1)
+    rng = np.random.default_rng(11)
+    x = p1.x0
+    for _ in range(WALK_MPC_SETTLE):
+        u, state, r, p1 = mpc_step(p1, mpc_settings, x, state)
+    torch.cuda.synchronize()
+    lats, prims, duals, per_step = [], [], [], []
+    for _ in range(WALK_MPC_STEPS):
+        dvs = 0.005 * rng.standard_normal(nv).astype(np.float32)
+        x = torch.as_tensor(np.concatenate([x0[:nq], x0[nq:] + dvs])[None], device=dev)
+        reset_counts()
+        t0 = time.perf_counter()
+        u, state, r, p1 = mpc_step(p1, mpc_settings, x, state)
+        torch.cuda.synchronize()
+        lats.append((time.perf_counter() - t0) * 1e3)
+        c = read_counts()
+        per_step.append((c["riccati_backward"], c["riccati_forward"]))
+        prims.append(float(r.prim_infeas[0]))
+        duals.append(float(r.dual_infeas[0]))
+        check(tuple(u.shape) == (1, problem.nu) and bool(torch.isfinite(u).all()),
+              "walk MPC control finite, of the expected shape")
+    print(f"walk mpc: {WALK_MPC_SETTLE} settle + {WALK_MPC_STEPS} timed steps at B=1, step ms "
+          f"{[round(v, 1) for v in lats]} (median {float(np.median(lats)):.1f}), prim "
+          f"{prims}, dual {duals}, (K1, K2) launches per step {per_step}")
+    check(all(a == b >= 1 for a, b in per_step), "walk MPC kernel launch counts")
+    print(f"walk phase: {time.perf_counter() - t_phase:.1f} s")
+    return {"riccati_backward_walk": k1, "riccati_forward_walk": k2}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -616,9 +835,10 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     print_ptxas(logs)
 
-    kernels = kernels_phase(dev) + probe_phase(dev)
+    kernels = kernels_phase(dev) + k1_walk_check(dev) + probe_phase(dev)
     launches = slice_phase(dev)
     mpc_phase(dev)
+    launches.update(walk_phase(dev))
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))
