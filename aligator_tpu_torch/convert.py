@@ -88,7 +88,6 @@ def multibody_model_from_numpy(arrays: Mapping[str, np.ndarray], joints: Sequenc
     (jtype, axis) pairs, ``parents`` as joint indices (-1 for the world),
     ``frames`` as (name, parent_joint) pairs. ``dtype`` defaults to that
     of ``arrays["mass"]``."""
-    device = resolve_device(device)
     if dtype is None:
         dtype = torch.from_numpy(np.zeros(0, dtype=np.asarray(arrays["mass"]).dtype)).dtype
     return MultibodyModel.create(

@@ -91,6 +91,33 @@ class LQRProblem:
     def replace(self, **changes) -> "LQRProblem":
         return dataclasses.replace(self, **changes)
 
+    def with_parameterization(self, nth: int) -> "LQRProblem":
+        """A copy with zero θ-blocks of width ``nth``."""
+        lead = self.Q.shape[:2]
+        z = lambda *s: self.Q.new_zeros(lead + s)
+        return self.replace(Gx=z(self.nx, nth), Gu=z(self.nu, nth), Gth=z(nth, nth),
+                            gamma=z(nth), Gv=z(self.nc, nth))
+
+    def knot(self, t: int) -> "LQRProblem":
+        """Knot ``t`` of every problem: the stage fields lose the time
+        axis, (B, ...); G0 and g0 are kept."""
+        return self.replace(**{
+            f: getattr(self, f)[:, t] for f in _STAGE_FIELDS
+            if getattr(self, f) is not None})
+
+    def cycle_append(self, knot: "LQRProblem") -> "LQRProblem":
+        """Roll the horizon one step left and write ``knot`` (a problem of
+        single knots, as :meth:`knot` gives) into the last slot: the
+        receding-horizon shift of MPC."""
+        shift = lambda f: torch.cat(
+            [getattr(self, f)[:, 1:], getattr(knot, f).unsqueeze(1)], dim=1)
+        return self.replace(**{f: shift(f) for f in _STAGE_FIELDS
+                               if getattr(self, f) is not None})
+
+
+_STAGE_FIELDS = ("Q", "S", "R", "q", "r", "A", "B", "f", "C", "D", "d",
+                 "Gx", "Gu", "Gth", "gamma", "Gv")
+
 
 def lqr_zeros(
     N: int,

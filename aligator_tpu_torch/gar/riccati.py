@@ -24,6 +24,7 @@ import torch
 
 from aligator_tpu_torch.gar.lqr_problem import LQRProblem
 from aligator_tpu_torch.linalg.schur import kkt_factor, kkt_solve_refined
+from aligator_tpu_torch.utils.device import scalar_like
 from aligator_tpu_torch.utils.profiling import named_scope
 from aligator_tpu_torch.utils.tree import tree_map
 
@@ -103,7 +104,7 @@ def _sym(M: torch.Tensor) -> torch.Tensor:
 
 def batch_mu(mueq, B: int, like: torch.Tensor) -> torch.Tensor:
     """µ as a (B,) tensor (scalars are broadcast over the batch)."""
-    mu = torch.as_tensor(mueq, dtype=like.dtype, device=like.device)
+    mu = scalar_like(mueq, like)
     return mu.expand(B) if mu.dim() == 0 else mu
 
 
@@ -226,7 +227,7 @@ def initial_solve(problem: LQRProblem, vms: CostToGo, mudyn, refine_steps: int,
         [-problem.g0.unsqueeze(-1), problem.g0.new_zeros(problem.g0.shape + (nth,))],
         dim=-1,
     )
-    mudyn = torch.as_tensor(mudyn, dtype=problem.dtype, device=problem.device)
+    mudyn = scalar_like(mudyn, problem.Q)
     x_sol, l_sol = kkt_solve_refined(Vxx0, problem.G0, mudyn, b1, b2,
                                      refine_steps=refine_steps)
     x0, x0_th = x_sol[..., 0], x_sol[..., 1:]

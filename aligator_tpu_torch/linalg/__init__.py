@@ -11,3 +11,7 @@ from aligator_tpu_torch.linalg.spd import (
     spd_solve,
     spd_solve_factored,
 )
+from aligator_tpu_torch.linalg.block_tridiag import (
+    block_tridiag_matmul,
+    block_tridiag_solve,
+)

@@ -20,6 +20,8 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from aligator_tpu_torch.utils.device import scalar_like
+
 
 class SaddleFactor(NamedTuple):
     chol_R: torch.Tensor  # (..., n, n) lower Cholesky of R
@@ -31,7 +33,7 @@ class SaddleFactor(NamedTuple):
 
 def _mu_b(mu, R: torch.Tensor) -> torch.Tensor:
     """µ as a (..., 1, 1) tensor broadcastable against R's batch."""
-    mu = torch.as_tensor(mu, dtype=R.dtype, device=R.device)
+    mu = scalar_like(mu, R)
     return mu.reshape(mu.shape + (1, 1))
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from aligator_tpu_torch.manifolds.lie import SE3, quat_to_mat
+from aligator_tpu_torch.utils.device import resolve_device
 from aligator_tpu_torch.utils.tree import static_field
 
 
@@ -120,7 +121,9 @@ class MultibodyModel:
     def create(cls, jplace_R, jplace_p, mass, com, inertia, frame_R, frame_p, gravity,
                joints, parents, frames, dtype=torch.float64, device=None):
         """A model from array-likes (numpy or torch) of the JAX model's
-        leaves and its static tree; tensors go to ``device`` and ``dtype``."""
+        leaves and its static tree; tensors go to ``device`` (default: the
+        card; raises without one) and ``dtype``."""
+        device = resolve_device(device)
         t = lambda a: torch.as_tensor(np.asarray(a, dtype=np.float64)).to(
             device=device, dtype=dtype)
         axis = np.array([s.axis if s.axis is not None else (0.0, 0.0, 0.0)
@@ -241,7 +244,8 @@ def build_humanoid(dtype=torch.float64, device=None) -> MultibodyModel:
     reference's joint order (left leg, right leg, torso, left arm, right
     arm). Frames ``left_sole`` and ``right_sole`` under the ankle-roll
     joints and ``torso`` on the chest. The same model as the JAX
-    package's ``build_humanoid``."""
+    package's ``build_humanoid``, on ``device`` (default: the card;
+    raises without one)."""
     joints, parents, jR, jp, mass, com, inert = [], [], [], [], [], [], []
 
     def add(jtype, axis, parent, p, m, c_off, half_dims):

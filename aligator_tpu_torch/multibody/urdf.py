@@ -149,7 +149,8 @@ def load_urdf(urdf: str, free_flyer: bool = False, dtype=torch.float64, device=N
               gravity=(0.0, 0.0, -9.81)) -> MultibodyModel:
     """A :class:`MultibodyModel` from a URDF document or file path.
     ``free_flyer=True`` roots the robot on a floating joint. Frames are
-    created for every link, named by the link name."""
+    created for every link, named by the link name. ``device`` defaults to
+    the card (raises without one)."""
     _, links, ujoints, root_link = _parse(urdf)
     by_parent: dict = {}
     for j in ujoints:

@@ -15,11 +15,12 @@ host sync.
 
 Supported: the BCL outer loop, the inner Newton loop, the regularization
 ladder, Armijo / nonmonotone linesearch, linear rollout, Gauss-Newton
-Hessians, ``lq_solver`` ∈ {"serial", "pallas"} ("pallas" keeps the JAX
-spelling and means the fused hand-written CUDA kernels of
-``gar.fused_riccati``), ``riccati_refine``, ``cost_scale`` and
-``lq_refine_full``. Every other setting raises ``NotImplementedError``
-naming its ROADMAP item.
+Hessians, every single-device ``lq_solver`` of the JAX package:
+"serial", "pallas" (the JAX spelling, here the fused hand-written CUDA
+kernels of ``gar.fused_riccati``), "parallel" with ``lq_num_legs``,
+"stagedense", "assoc" and "dense_oracle"; ``riccati_refine``,
+``cost_scale`` and ``lq_refine_full``. Every other setting raises
+``NotImplementedError`` naming its ROADMAP item.
 """
 
 from __future__ import annotations
@@ -30,8 +31,12 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch.func import vmap
 
+from aligator_tpu_torch.gar import assoc as _assoc
 from aligator_tpu_torch.gar import fused_riccati as _fused
 from aligator_tpu_torch.gar import riccati as _riccati
+from aligator_tpu_torch.gar import stagedense as _stagedense
+from aligator_tpu_torch.gar.dense import dense_solve
+from aligator_tpu_torch.gar.parallel import parallel_solve
 from aligator_tpu_torch.gar.lqr_problem import LQRProblem
 from aligator_tpu_torch.gar.utils import lqr_kkt_residuals
 from aligator_tpu_torch.problem import (
@@ -92,12 +97,31 @@ class ProxDDPSettings:
     lq_refine_full: int = 0
     cost_scale: float = 1.0
     debug: bool = False
-    lq_solver: str = "serial"  # "serial" | "pallas" (the fused CUDA kernels)
-    lq_num_legs: int = 0
+    # serial|parallel|stagedense|dense_oracle|assoc|pallas (the fused CUDA kernels)
+    lq_solver: str = "serial"
+    lq_num_legs: int = 0  # legs of the parallel solver; 0 = serial
     lq_mesh: Any = None
+    lq_axis_name: str = "t"
+
+
+LQ_SOLVERS = ("serial", "parallel", "stagedense", "dense_oracle", "assoc", "pallas")
+
+
+def _is_parallel(s: ProxDDPSettings) -> bool:
+    """As in the JAX package, "serial" with more than one leg means the
+    parallel solver."""
+    return s.lq_solver == "parallel" or (s.lq_solver == "serial" and s.lq_num_legs > 1)
 
 
 def _check_supported(s: ProxDDPSettings) -> None:
+    if s.lq_solver not in LQ_SOLVERS:
+        raise ValueError(f"unknown lq_solver {s.lq_solver!r}")
+    if ((_is_parallel(s) or s.lq_solver == "dense_oracle")
+            and s.rollout_type == "nonlinear"):
+        raise ValueError(
+            "nonlinear rollout requires an LQ solver with gains "
+            "(serial/assoc/stagedense); the parallel solver is restricted to "
+            "linear rollouts, and the dense oracle forms no gains")
     unported = [
         (s.sa_strategy == "filter", "sa_strategy='filter' (ROADMAP A26, filter_run)"),
         (s.rollout_type != "linear", "rollout_type='nonlinear' (ROADMAP A27)"),
@@ -105,9 +129,8 @@ def _check_supported(s: ProxDDPSettings) -> None:
          "hessian_approx='exact' (ROADMAP A25, compute_vhp)"),
         (s.verbose or s.record_history or s.record_iterates or s.callback is not None
          or s.debug, "verbose/history/iterates/callback/debug (ROADMAP A30)"),
-        (s.lq_solver not in ("serial", "pallas") or s.lq_num_legs > 1
-         or s.lq_mesh is not None,
-         f"lq_solver={s.lq_solver!r} / lq_num_legs / lq_mesh (ROADMAP A18-A20)"),
+        (s.lq_mesh is not None or s.lq_axis_name != "t",
+         "lq_mesh / lq_axis_name: legs over several devices (ROADMAP A19b)"),
     ]
     for bad, what in unported:
         if bad:
@@ -354,8 +377,17 @@ def _build_lq(problem: TrajOptProblem, data: ProblemData, derivs: ProblemDerivs,
 
 
 def _solve_lq_once(s: ProxDDPSettings, lq: LQRProblem, mu):
-    """One LQ solve → (dxs, dus, dvs, dlams)."""
+    """One LQ solve → (dxs, dus, dvs, dlams), by ``s.lq_solver``."""
     with torch.profiler.record_function("proxddp.riccati"):
+        if _is_parallel(s):
+            return parallel_solve(lq, mu, max(s.lq_num_legs, 2),
+                                  refine_steps=s.riccati_refine)
+        if s.lq_solver == "stagedense":
+            return _stagedense.solve(lq, mu)[:4]
+        if s.lq_solver == "dense_oracle":
+            return dense_solve(lq, mu)
+        if s.lq_solver == "assoc":
+            return _assoc.solve(lq, mu, refine_steps=s.riccati_refine)[:4]
         mod = _fused if s.lq_solver == "pallas" else _riccati
         factors = mod.backward(lq, mu, refine_steps=s.riccati_refine)
         return mod.forward(lq, factors)

@@ -20,6 +20,16 @@ def resolve_device(device: Optional[Union[str, torch.device]] = None) -> torch.d
     return torch.device("cuda")
 
 
+def scalar_like(value, like: torch.Tensor) -> torch.Tensor:
+    """``value`` (a number or a tensor) as a tensor of ``like``'s dtype and
+    device. A Python number is written on the device by a fill kernel:
+    ``torch.as_tensor(number, device="cuda")`` copies it from the host and
+    waits for the stream, a host sync."""
+    if isinstance(value, torch.Tensor):
+        return value.to(dtype=like.dtype, device=like.device)
+    return like.new_full((), value)
+
+
 def full_f32_matmuls() -> None:
     """Keep float32 products in full float32 on the card. TF32 keeps about
     three decimal digits, which second-order solves at µ ≤ 1e-6 cannot

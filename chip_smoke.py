@@ -13,7 +13,10 @@ beside their bounds, runs the layout probe (the port of
 then timed per construct beside its library call), drives the main path
 — the batched ProxDDP solve of the lqr56 box-constrained LQR (B = 256,
 N = 100, 2 iterations, float32) and three MPC steps — through the
-kernels, then the second path: the talos walk at its published size
+kernels, then the LQ solvers behind ``lq_solver`` (parallel, stagedense,
+assoc, the dense oracle: each against the serial recursion in float64,
+the bench solve through each, and one problem at N = 2048 through each
+beside the fused kernels), then the second path: the talos walk at its published size
 (N = 195, 16 perturbed scenarios, float32, solved to convergence through
 K1's walk instantiation and K2, against the serial path and a float64
 solve on the card) and its MPC cycle at B = 1. It checks the results and
@@ -37,7 +40,12 @@ import torch
 
 from aligator_tpu_torch.convert import lqr_from_numpy, problem_from_numpy
 from aligator_tpu_torch.examples import talos_walk as TW
+from aligator_tpu_torch.gar import assoc as GA
+from aligator_tpu_torch.gar import dense as GD
 from aligator_tpu_torch.gar import fused_riccati as FR
+from aligator_tpu_torch.gar import parallel as GP
+from aligator_tpu_torch.gar import riccati as GR
+from aligator_tpu_torch.gar import stagedense as GSD
 from aligator_tpu_torch.gar.riccati import knots_of
 from aligator_tpu_torch.gar.utils import lqr_kkt_error
 from aligator_tpu_torch.mpc import init_mpc_state, mpc_step
@@ -540,14 +548,17 @@ def slice_phase(dev):
     return launches
 
 
-def trace_device(fn):
+def trace_device(fn, host_ops: bool = True):
     """Run ``fn`` once under torch.profiler: (host wall µs, the device
     kernels, their busy time as the union of their intervals in µs, device
-    time by kernel name). Empty when the profiler records no device time."""
+    time by kernel name). Empty when the profiler records no device time.
+    ``host_ops=False`` records the device side only, for runs of ~10⁵
+    kernels whose host operations would swamp the trace."""
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+    activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
+    with profile(activities=activities) as prof:
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
@@ -587,6 +598,158 @@ def profile_solve(problem):
           f"busy (union) {busy / 1e3:.3f} ms, idle share {1 - busy / wall_us:.3f}")
     for name, us in top:
         print(f"  {us / 1e3:9.3f} ms  {name[:90]}")
+
+
+# The LQ-solver layer (gar.parallel, gar.stagedense, gar.assoc, gar.dense):
+# f64 exactness at the lqr56 widths, the bench sweep of bench.py:49-53
+# (PARALLEL_LEGS = 4), and one long-horizon problem at B = 1.
+LQ_EXACT_BATCH, LQ_EXACT_LEGS, LQ_EXACT_MUS = 4, (2, 4, 8), (1e-2, 1e-6)
+LQ_LONG_N, LQ_LONG_LEGS, LQ_LONG_MU = 2048, (8, 32), 1e-2
+
+
+def lq_solvers(legs) -> dict:
+    """name → solve(lq, µ) → (xs, us, vs, lbdas), for every LQ solver of
+    the port but the fused one."""
+    return {"serial": lambda lq, mu: GR.solve(lq, mu)[:4],
+            **{f"parallel J={J}": (lambda lq, mu, J=J: GP.parallel_solve(lq, mu, J))
+               for J in legs},
+            "stagedense": lambda lq, mu: GSD.solve(lq, mu)[:4],
+            "assoc": lambda lq, mu: GA.solve(lq, mu)[:4]}
+
+
+def rel_err(out, ref) -> float:
+    """max over (xs, us, vs, λs) of max|Δ| / max|ref|; inf when non-finite."""
+    errs = []
+    for a, b in zip(out, ref):
+        if not bool(torch.isfinite(a).all()):
+            return float("inf")
+        errs.append(max_err(a, b) / max(float(b.abs().max()), 1e-30) if b.numel() else 0.0)
+    return max(errs)
+
+
+def count_syncs(fn):
+    """(result of fn, the host syncs torch flags while fn runs, their
+    Python call sites)."""
+    import warnings
+
+    torch.cuda.synchronize()
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    torch.cuda.synchronize()
+    syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    return out, len(syncs), sorted({f"{w.filename.split('/')[-1]}:{w.lineno}" for w in syncs})
+
+
+def lq_phase(dev):
+    """The LQ solvers behind ProxDDP's ``lq_solver``, on the card: each
+    against the serial recursion in float64, the bench's batched solve
+    through each (float32, gated against the fused solve), and a single
+    long-horizon problem through each with its wall, kernels, busy time
+    and host syncs (the fused row there goes through K1 and K2)."""
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(21)
+    # float64 exactness: max|Δ| ≤ 1e-8·max|·| against the serial recursion
+    lq = lqr_from_numpy(random_lq_arrays(rng, LQ_EXACT_BATCH, NSTEPS, NX, NU, NU), device=dev)
+    small = lqr_from_numpy(random_lq_arrays(rng, LQ_EXACT_BATCH, 9, 7, 3, 2), device=dev)
+    check(lq.dtype == torch.float64, "float64 LQs")
+    for mu in LQ_EXACT_MUS:
+        solvers = lq_solvers(LQ_EXACT_LEGS)
+        ref = solvers.pop("serial")(lq, mu)
+        errs = {name: rel_err(fn(lq, mu), ref) for name, fn in solvers.items()}
+        errs["dense_oracle (N=9, nx=7)"] = rel_err(GD.dense_solve(small, mu),
+                                                   GR.solve(small, mu)[:4])
+        print(f"lq f64: B={LQ_EXACT_BATCH} N={NSTEPS} nx={NX} nu={NU} nc={NU} mu={mu:g}, "
+              f"max|d|/max|.| against serial: {json.dumps(errs)}")
+        for name, e in errs.items():
+            # the assoc penalty form loses ~eps/mu: gated at mu = 1e-2 only
+            if name != "assoc" or mu >= 1e-2:
+                check(e <= 1e-8, f"lq f64 {name} mu={mu:g}: {e}")
+
+    # the bench configuration through each solver, gated against the fused
+    arr = lqr_bench_arrays(NX, NU)
+    problem = problem_from_numpy(
+        arr["A"], arr["B"], arr["c"], arr["Q"], arr["R"], arr["Qf"], batch_x0(BATCH, NX),
+        NSTEPS, arr["lower"], arr["upper"], device=dev, dtype=torch.float32)
+    rows = {"fused": bench_settings("pallas"), "serial": bench_settings("serial"),
+            "parallel J=4": bench_settings("parallel", lq_num_legs=4),
+            "stagedense": bench_settings("stagedense"), "assoc": bench_settings("assoc")}
+    fused = solve(problem, rows["fused"])
+    rates = {}
+    for name, settings in rows.items():
+        res = solve(problem, settings)
+        rel = float(((res.traj_cost - fused.traj_cost).abs()
+                     / fused.traj_cost.abs().clamp(min=1.0)).max())
+        same = bool((res.num_iters == fused.num_iters).all())
+        check(bool(torch.isfinite(res.xs).all()) and rel <= 1e-3 and same,
+              f"lq bench {name}: traj cost rel {rel:.3e}, equal iterations {same}")
+        rate = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            solve(problem, settings)
+            torch.cuda.synchronize()
+            rate.append(BATCH / (time.perf_counter() - t0))
+        rates[name] = float(np.median(rate))
+        print(f"lq bench: {name}: B={BATCH} N={NSTEPS} {SOLVER_ITERS} iterations, traj cost "
+              f"rel to fused {rel:.3e}, solves/s {[round(r, 1) for r in rate]} (median "
+              f"{rates[name]:.1f})")
+
+    # one problem, a long horizon: wall, device kernels and busy time, syncs
+    lq = lqr_from_numpy(random_lq_arrays(rng, 1, LQ_LONG_N, NX, NU, NU), device=dev,
+                        dtype=torch.float32)
+    mu = LQ_LONG_MU
+    solvers = lq_solvers(LQ_LONG_LEGS)
+    del solvers["stagedense"]  # O(N) like serial, and not the question here
+    solvers["pallas"] = lambda lq, mu: FR.forward(lq, FR.backward(lq, mu))
+    reset_counts()
+    ref, table = None, {}
+    for name, fn in solvers.items():
+        run = lambda: fn(lq, mu)
+        out = run()  # the result, and a warm-up: one-time set-ups are not counted
+        _, syncs, where = count_syncs(run)
+        ref = out if name == "serial" else ref
+        err = rel_err(out, ref)
+        walls = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+            walls.append((time.perf_counter() - t0) * 1e3)
+        # serial issues ~10⁶ host operations, which would swamp the trace
+        _, kern, busy, by_name = trace_device(run, host_ops=name != "serial")
+        ours = sorted(n for n in by_name if "riccati" in n)
+        # a trace of the fused row that holds no K1 has not seen the sweep
+        seen = bool(kern) and (name != "pallas" or any("backward" in n for n in ours))
+        table[name] = dict(wall_ms=float(np.median(walls)), kernels=len(kern) if kern else None,
+                           busy_ms=busy / 1e3 if seen else None, syncs=syncs, err=err)
+        print(f"lq long: {name}: B=1 N={LQ_LONG_N} nx={NX} nu={NU} nc={NU} mu={mu:g}, wall ms "
+              f"{[round(w, 3) for w in walls]} (median {table[name]['wall_ms']:.3f}), device "
+              f"kernels {len(kern) if kern else 'not measured'}, busy ms "
+              f"{'%.3f' % (busy / 1e3) if seen else 'not measured'}"
+              f"{f' (the trace holds {ours})' if name == 'pallas' else ''}, host syncs "
+              f"{syncs} {where}, max|d|/max|.| against serial {err:.3e}")
+        check(err <= 1e-3, f"lq long {name} against serial: {err}")
+    launches = read_counts()
+    k1, k2 = launches["riccati_backward"], launches["riccati_forward"]
+    check(k1 >= 1 and k2 >= 1, "the long-horizon fused row went through K1 and K2")
+    # K1 and K2 alone at that shape, beside their bounds
+    knots = knots_of(lq)
+    mu_t = torch.full((1,), mu, device=dev)
+    g, v = FR.backward_sweep_batched(knots, mu_t)
+    x0 = torch.zeros(1, NX, device=dev)
+    k1_ms = cuda_ms(lambda: FR.backward_sweep_batched(knots, mu_t), 3)
+    k2_ms = cuda_ms(lambda: FR.forward_sweep_batched(g, v, x0, x0), 10)
+    b1, by1 = bound_ms(*backward_cost(1, LQ_LONG_N + 1, NX, NU, NU, 1))
+    b2, by2 = bound_ms(*forward_cost(1, LQ_LONG_N + 1, NX, NU, NU))
+    print(f"lq long: K1 alone at B=1 L={LQ_LONG_N + 1} {k1_ms:.4f} ms (bound {b1:.4f} ms by "
+          f"{by1}, {k1_ms / (LQ_LONG_N + 1) * 1e3:.2f} us per knot); K2 {k2_ms:.4f} ms (bound "
+          f"{b2:.4f} ms by {by2}); launches in the comparison K1={k1} K2={k2}")
+    print(f"lq long summary: {json.dumps(table)}")
+    print(f"lq phase: {time.perf_counter() - t_phase:.1f} s")
 
 
 def mpc_phase(dev):
@@ -837,6 +1000,7 @@ def main() -> int:
 
     kernels = kernels_phase(dev) + k1_walk_check(dev) + probe_phase(dev)
     launches = slice_phase(dev)
+    lq_phase(dev)
     mpc_phase(dev)
     launches.update(walk_phase(dev))
     for k in kernels:

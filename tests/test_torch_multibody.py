@@ -44,7 +44,8 @@ from aligator_tpu_torch.multibody import contact as TCt
 from aligator_tpu_torch.multibody.model import build_humanoid
 from aligator_tpu_torch.multibody.spaces import MultibodyPhaseSpace as TPhase
 from aligator_tpu_torch.multibody.spatial import so3_log
-from aligator_tpu_torch.multibody.urdf import load_talos_like
+from aligator_tpu_torch.multibody.urdf import TALOS_LIKE_URDF, load_talos_like, load_urdf
+from aligator_tpu_torch.utils.device import resolve_device
 
 torch.set_num_threads(1)
 
@@ -250,6 +251,20 @@ def test_urdf_and_builder_models_match_jax():
             (f.name, f.parent_joint) for f in tm.frames]
         for k in MULTIBODY_LEAVES:
             _close(getattr(tm, k), getattr(jm, k), 1e-15, k)
+
+
+def test_model_builders_default_to_the_card(monkeypatch):
+    """With ``device=None`` each builder asks ``resolve_device`` for the
+    card, so on a box without a GPU it raises the same RuntimeError and
+    never falls back to the CPU."""
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError) as want:
+        resolve_device(None)
+    for build in (load_talos_like, build_humanoid,
+                  lambda: load_urdf(str(TALOS_LIKE_URDF))):
+        with pytest.raises(RuntimeError) as got:
+            build()
+        assert str(got.value) == str(want.value)
 
 
 LIE = {"SO2": (JM.SO2(), TM.SO2()), "SO3": (JM.SO3(), TM.SO3()),

@@ -173,10 +173,19 @@ def test_cost_scale_and_full_refinement_keep_the_optimum():
     dict(cost_scale=0.5, lq_refine_full=1),
     dict(mu_dyn_scale=1.0),
     dict(dual_tol=1e-4),
+    # the LQ solvers: "serial" with lq_num_legs > 1 means "parallel"
+    dict(lq_solver="parallel", lq_num_legs=2),
+    dict(lq_solver="parallel", lq_num_legs=4),
+    dict(lq_solver="serial", lq_num_legs=4),
+    dict(lq_solver="stagedense"),
+    dict(lq_solver="assoc"),
+    dict(lq_solver="dense_oracle"),
 ], ids=lambda kw: ",".join(f"{k}={v}" for k, v in kw.items()))
 def test_proxddp_f64_settings_match_jax_vmap(kw):
     """Settings beside the defaults, each against the vmapped JAX solve in
-    float64: iterates to 1e-12, equal conv, num_iters and al_iter."""
+    float64: iterates to 1e-12, equal conv, num_iters and al_iter. Every LQ
+    solver runs the JAX package's algorithm in the same order, so 1e-12
+    holds for each of them too."""
     f = _fixture(0)
     base = dict(tol=1e-8, mu_init=1e-2, max_iters=30, **kw)
     res_j = _jax_vmap_solve(f, _x0s(), JSettings(**base), jnp.float64)
@@ -189,7 +198,7 @@ def test_proxddp_f64_settings_match_jax_vmap(kw):
     (dict(rollout_type="nonlinear"), "A27"),
     (dict(hessian_approx="exact"), "A25"),
     (dict(record_history=True), "A30"),
-    (dict(lq_solver="stagedense"), "A18-A20"),
+    (dict(lq_mesh=object()), "A19b"),
 ])
 def test_unported_settings_raise(kw, item):
     f = _fixture(0)
