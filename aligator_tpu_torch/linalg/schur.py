@@ -38,11 +38,13 @@ def _mu_b(mu, R: torch.Tensor) -> torch.Tensor:
 
 
 def cholesky(A: torch.Tensor) -> torch.Tensor:
-    """Lower Cholesky factor; NaN-filled where A is not positive definite
-    (torch raises where JAX returns NaN — the solver relies on NaN)."""
+    """Lower Cholesky factor. Where A is not positive definite it is NaN on
+    and below the diagonal and zero above, as ``jnp.linalg.cholesky``
+    returns it (torch raises there; the solvers rely on the NaN). No host
+    sync checks it."""
     L, info = torch.linalg.cholesky_ex(A)
     bad = (info != 0).reshape(info.shape + (1, 1))
-    return torch.where(bad, torch.full_like(L, float("nan")), L)
+    return torch.where(bad, torch.full_like(L, float("nan")).tril(), L)
 
 
 def _chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:

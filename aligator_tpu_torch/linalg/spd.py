@@ -18,6 +18,8 @@ from typing import NamedTuple
 
 import torch
 
+from aligator_tpu_torch.linalg.schur import cholesky
+
 
 class SPDFactor(NamedTuple):
     chol: torch.Tensor  # (n, n) lower Cholesky factor of D M D
@@ -26,13 +28,17 @@ class SPDFactor(NamedTuple):
 
 
 def spd_factor(M: torch.Tensor) -> SPDFactor:
-    """Jacobi-equilibrated Cholesky factorization of an SPD matrix."""
+    """Jacobi-equilibrated Cholesky factorization of an SPD matrix. A matrix
+    that is not positive definite gives a NaN factor, as JAX's Cholesky
+    does (a solver then rejects the trial that led there), not an
+    exception; and no host sync checks the result."""
     s = torch.rsqrt(torch.diagonal(M, dim1=-2, dim2=-1))
     Ms = M * s[..., :, None] * s[..., None, :]
-    return SPDFactor(chol=torch.linalg.cholesky(Ms), scale=s, M=M)
+    return SPDFactor(chol=cholesky(Ms), scale=s, M=M)
 
 
 def _cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(L Lᵀ)⁻¹ b by two triangular solves (b (..., n, k))."""
     y = torch.linalg.solve_triangular(L, b, upper=False)
     return torch.linalg.solve_triangular(L.mT, y, upper=True)
 

@@ -16,7 +16,7 @@ import dataclasses
 from typing import Any, NamedTuple, Optional, Sequence, Tuple
 
 import torch
-from torch.func import vmap
+from torch.func import hessian, vmap
 
 from aligator_tpu_torch.constraints import ConstraintSet, ConstraintSetProduct
 from aligator_tpu_torch.functions.basic import StateErrorResidual
@@ -266,16 +266,94 @@ def compute_derivatives(problem: TrajOptProblem, xs: torch.Tensor,
     )
 
 
+@named_scope("problem.vhp")
+def compute_vhp(problem: TrajOptProblem, xs: torch.Tensor, us: torch.Tensor,
+                lams: torch.Tensor, vs: torch.Tensor, vs_term: torch.Tensor):
+    """Second-order terms of the Lagrangian beyond the Gauss-Newton model:
+    per stage, ``torch.func.hessian`` of λ_{t+1}·defect + cost + v·c in
+    tangent coordinates, minus the cost's own (Gauss-Newton) Hessian, under
+    a vmap over time and batch. Returns (Hxx (B, N+1, ndx, ndx), Hxu (B, N,
+    ndx, nu), Huu (B, N, nu, nu)); Hxx[:, 0] also carries the initial
+    constraint's term and Hxx[:, N] the terminal cost's and constraints'."""
+    space = problem.space
+    N, ndx, nu = problem.nsteps, space.ndx, problem.nu
+
+    def stage(objs, x, u, x_next, lam_next, v):
+        dyn, cost, cstrs = objs
+
+        def weighted(z):
+            xp, up = space.integrate(x, z[:ndx]), u + z[ndx:]
+            s = lam_next @ dyn.defect(space, xp, up, x_next) + cost.value(space, xp, up)
+            if problem.nc:
+                s = s + v @ _stage_cstr_values(cstrs, xp, up)
+            return s
+
+        H = hessian(weighted)(x.new_zeros(ndx + nu))
+        Lxx, Lxu, Luu = cost.hessians(space, x, u)
+        return H[:ndx, :ndx] - Lxx, H[:ndx, ndx:] - Lxu, H[ndx:, ndx:] - Luu
+
+    Hxx, Hxu, Huu = _vmap_batch(
+        stage, (problem.dynamics, problem.cost, problem.constraints),
+        xs[:, :N], us, xs[:, 1:], lams[:, 1:], vs, time=True,
+    )
+
+    def terminal(objs, x, v):
+        tcost, tcstrs = objs
+        u0 = x.new_zeros(nu)
+
+        def weighted(dx):
+            xp = space.integrate(x, dx)
+            s = tcost.value(space, xp, u0)
+            if problem.nc_term:
+                s = s + v @ _stage_cstr_values(tcstrs, xp, u0)
+            return s
+
+        return hessian(weighted)(x.new_zeros(ndx)) - tcost.hessians(space, x, u0)[0]
+
+    HxxN = _vmap_batch(terminal, (problem.term_cost, problem.term_constraints),
+                       xs[:, N], vs_term)
+
+    def initial(x, x0, lam0):
+        return hessian(lambda dx: lam0 @ space.difference(x0, space.integrate(x, dx)))(
+            x.new_zeros(ndx))
+
+    Hxx0 = vmap(initial)(xs[:, 0], problem.x0, lams[:, 0])
+    Hxx = torch.cat([Hxx[:, :1] + Hxx0.unsqueeze(1), Hxx[:, 1:], HxxN.unsqueeze(1)], dim=1)
+    return Hxx, Hxu, Huu
+
+
+def stage_at(obj, t: int):
+    """The stage-``t`` slice of a stacked object inside a function that
+    ``_vmap_batch`` maps over the batch alone (leaves (N, ...) there). The
+    closed-loop rollouts run their loop over time inside such a function:
+    one vmap per rollout, not one per step."""
+    return tree_map(lambda a: a[t], obj)
+
+
+def stage_costs(problem: TrajOptProblem, xs: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
+    """The trajectory cost alone (no dynamics, no constraints) of each
+    element: Σ_t ℓ_t(x_t, u_t) + ℓ_N(x_N) → (B,)."""
+    space = problem.space
+    N = problem.nsteps
+    costs = _vmap_batch(lambda c, x, u: c.value(space, x, u), problem.cost,
+                        xs[:, :N], us, time=True)
+    term = _vmap_batch(lambda c, x: c.value(space, x, x.new_zeros(problem.nu)),
+                       problem.term_cost, xs[:, N])
+    return costs.sum(-1) + term
+
+
 def rollout(problem: TrajOptProblem, x0: torch.Tensor, us: torch.Tensor) -> torch.Tensor:
     """Open-loop rollout of the dynamics; x0 (B, nx), us (B, N, nu) →
     xs (B, N+1, nx)."""
     space = problem.space
-    xs = [x0]
-    for t in range(problem.nsteps):
-        dyn_t = tree_map(lambda a: a[:, t], problem.dynamics)
-        xs.append(_vmap_batch(lambda d, x, u: d.forward(space, x, u), dyn_t,
-                              xs[-1], us[:, t]))
-    return torch.stack(xs, dim=1)
+
+    def roll(dyn, x, us):
+        xs = [x]
+        for t in range(problem.nsteps):
+            xs.append(stage_at(dyn, t).forward(space, xs[-1], us[t]))
+        return torch.stack(xs)
+
+    return _vmap_batch(roll, problem.dynamics, x0, us)
 
 
 def xs_default_init(problem: TrajOptProblem) -> torch.Tensor:

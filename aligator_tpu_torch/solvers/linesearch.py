@@ -1,19 +1,19 @@
-"""Step acceptance: backtracking Armijo with safeguarded interpolation, and
-its nonmonotone (Zhang-Hager) use through ``phi_ref`` (port of part of
-``aligator_tpu.solvers.linesearch``; the filter strategy waits in ROADMAP
-queue A).
+"""Step acceptance: backtracking Armijo with safeguarded interpolation, its
+nonmonotone (Zhang-Hager) use through ``phi_ref``, and the (merit,
+infeasibility) filter (port of ``aligator_tpu.solvers.linesearch``).
 
 Batched: α, φ and every payload leaf carry a leading batch axis. The JAX
 ``lax.while_loop`` under ``jax.vmap`` runs until every element is done,
-freezing each finished element by a select; this loop does exactly that
+freezing each finished element by a select; these loops do exactly that
 with ``tree_where``. A non-finite merit fails the acceptance test and the
-backtracking continues.
+backtracking continues. The filter's pair list is a fixed-capacity masked
+array per element.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, Optional, Tuple
+from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
@@ -119,3 +119,82 @@ def armijo_run(
         )
         c = tree_where(active, new, c)
     return c["alpha"], c["phi"], c["payload"]
+
+
+# ---------------------------------------------------------------------------
+# Filter strategy: a fixed-capacity masked pair list per element
+# ---------------------------------------------------------------------------
+
+
+class FilterState(NamedTuple):
+    """(merit, infeasibility) pairs with a validity mask, per element."""
+
+    phis: torch.Tensor  # (B, K)
+    hs: torch.Tensor  # (B, K)
+    valid: torch.Tensor  # (B, K) bool
+    count: torch.Tensor  # (B,) int32, round-robin insertion cursor
+
+
+def filter_init(capacity: int, batch: int, dtype=torch.float64, device=None) -> FilterState:
+    z = torch.zeros((batch, capacity), dtype=dtype, device=device)
+    return FilterState(phis=z, hs=z.clone(),
+                       valid=torch.zeros((batch, capacity), dtype=torch.bool, device=device),
+                       count=torch.zeros(batch, dtype=torch.int32, device=device))
+
+
+def _filter_acceptable(fs: FilterState, phi, h, beta):
+    """The pair (phi, h) (each (B,)) is blocked where some valid element
+    dominates it with margin β·h_el → (B,) bool."""
+    margin = beta * fs.hs
+    blocked = (fs.valid & (fs.phis + margin <= phi.unsqueeze(-1))
+               & (fs.hs + margin <= h.unsqueeze(-1)))
+    return ~blocked.any(-1)
+
+
+def _filter_insert(fs: FilterState, phi, h) -> FilterState:
+    """Remove the pairs that (phi, h) dominates, then store it in the first
+    free slot, or at the cursor ``count % capacity`` when none is free."""
+    cap = fs.valid.shape[-1]
+    dominated = fs.valid & (phi.unsqueeze(-1) <= fs.phis) & (h.unsqueeze(-1) <= fs.hs)
+    valid = fs.valid & ~dominated
+    idx = torch.arange(cap, device=valid.device)
+    first_free = torch.where(valid, cap, idx).amin(-1)
+    slot = torch.where(valid.all(-1), fs.count.long() % cap, first_free)
+    at = idx == slot.unsqueeze(-1)
+    return FilterState(
+        phis=torch.where(at, phi.unsqueeze(-1), fs.phis),
+        hs=torch.where(at, h.unsqueeze(-1), fs.hs),
+        valid=valid | at,
+        count=fs.count + 1,
+    )
+
+
+def filter_run(
+    pair_eval: Callable[[torch.Tensor], Tuple[torch.Tensor, torch.Tensor, object]],
+    fs: FilterState,
+    opts: LinesearchOptions,
+    beta: float = 0.0,
+):
+    """Halve α until the trial pair is acceptable to the filter (or α
+    reaches ``alpha_min``), then insert the last trial's pair, per element.
+
+    ``pair_eval(alpha (B,)) -> (phi (B,), h (B,), payload)``. Returns
+    ``(alpha, phi, payload, new_filter_state)``.
+    """
+    one = torch.ones_like(fs.phis[:, 0])
+    phi1, h1, payload1 = pair_eval(one)
+    acceptable = lambda phi, h: (torch.isfinite(phi) & torch.isfinite(h)
+                                 & _filter_acceptable(fs, phi, h, beta))
+    c = dict(alpha=one, phi=phi1, h=h1, payload=payload1, done=acceptable(phi1, h1),
+             cnt=torch.zeros_like(fs.count))
+    while True:
+        active = (~c["done"]) & (c["cnt"] < opts.max_num_steps)
+        if not bool(active.any()):
+            break
+        alpha_n = torch.clamp(0.5 * c["alpha"], min=opts.alpha_min)
+        phi_n, h_n, payload_n = pair_eval(alpha_n)
+        new = dict(alpha=alpha_n, phi=phi_n, h=h_n, payload=payload_n,
+                   done=acceptable(phi_n, h_n) | (alpha_n <= opts.alpha_min),
+                   cnt=c["cnt"] + 1)
+        c = tree_where(active, new, c)
+    return c["alpha"], c["phi"], c["payload"], _filter_insert(fs, c["phi"], c["h"])

@@ -13,14 +13,20 @@ iteration counts. Work whose result the select would discard is skipped
 (a Newton step when no active element needs one). Each ``.any()`` is a
 host sync.
 
-Supported: the BCL outer loop, the inner Newton loop, the regularization
-ladder, Armijo / nonmonotone linesearch, linear rollout, Gauss-Newton
-Hessians, every single-device ``lq_solver`` of the JAX package:
+Supported: every setting of the JAX solver on one device. The BCL outer
+loop, the inner Newton loop, the regularization ladder; Armijo,
+nonmonotone and filter step acceptance; linear and nonlinear rollouts
+(the latter a closed-loop re-rollout of the dynamics through the LQ
+solver's gains, one dynamics step per knot); Gauss-Newton and exact
+Hessians (``problem.compute_vhp``); every single-device ``lq_solver``:
 "serial", "pallas" (the JAX spelling, here the fused hand-written CUDA
-kernels of ``gar.fused_riccati``), "parallel" with ``lq_num_legs``,
-"stagedense", "assoc" and "dense_oracle"; ``riccati_refine``,
-``cost_scale`` and ``lq_refine_full``. Every other setting raises
-``NotImplementedError`` naming its ROADMAP item.
+kernels of ``gar.fused_riccati``, whose K1 gains the nonlinear rollout
+reads), "parallel" with ``lq_num_legs``, "stagedense", "assoc" and
+"dense_oracle"; ``riccati_refine``, ``cost_scale``, ``lq_refine_full``;
+``verbose``, ``record_history``, ``record_iterates``, ``callback`` (for an
+unbatched solve) and ``debug`` (``solve_checked``), whose host syncs are
+taken only when the setting is on. Legs over several devices (``lq_mesh``,
+``lq_axis_name``) raise ``NotImplementedError`` naming ROADMAP A19b.
 """
 
 from __future__ import annotations
@@ -43,12 +49,22 @@ from aligator_tpu_torch.problem import (
     ProblemData,
     ProblemDerivs,
     TrajOptProblem,
+    _vmap_batch,
     compute_derivatives as _derivs_raw,
+    compute_vhp,
     evaluate as _eval_raw,
+    stage_at,
     us_default_init,
     xs_default_init,
 )
-from aligator_tpu_torch.solvers.linesearch import LinesearchOptions, armijo_run
+from aligator_tpu_torch.solvers.linesearch import (
+    FilterState,
+    LinesearchOptions,
+    armijo_run,
+    filter_init,
+    filter_run,
+)
+from aligator_tpu_torch.utils import logger
 from aligator_tpu_torch.utils.device import full_f32_matmuls
 from aligator_tpu_torch.utils.profiling import named_scope
 from aligator_tpu_torch.utils.tree import tree_map, tree_where
@@ -76,7 +92,7 @@ class ProxDDPSettings:
     reg_inc_k: float = 10.0
     reg_inc_first_k: float = 100.0
     reg_dec_k: float = 1.0 / 3.0
-    sa_strategy: str = "nonmonotone"  # "armijo" | "nonmonotone"
+    sa_strategy: str = "nonmonotone"  # "armijo" | "nonmonotone" | "filter"
     ls_interp: str = "cubic"
     ls_contraction_min: float = 0.5
     ls_contraction_max: float = 0.8
@@ -85,17 +101,22 @@ class ProxDDPSettings:
     ls_beta: float = 0.5
     ls_max_steps: int = 25
     ls_avg_eta: float = 0.85
+    filter_beta: float = 0.0  # filter margin
+    filter_capacity: int = 64
     dphi_thresh: float = 1e-13
-    rollout_type: str = "linear"
-    hessian_approx: str = "gauss_newton"
-    verbose: bool = False
-    record_history: bool = False
-    record_iterates: bool = False
+    rollout_type: str = "linear"  # "linear" | "nonlinear"
+    hessian_approx: str = "gauss_newton"  # "gauss_newton" | "exact"
+    verbose: bool = False  # print one row per Newton step (utils.logger)
+    record_history: bool = False  # per-step scalars in results.history
+    record_iterates: bool = False  # per-step xs/us/lams in results.history_*
+    # callback(iter, xs, us, lams, prim, dual), numpy arrays, at every
+    # inner-loop criterion evaluation; unbatched solves only
     callback: Any = None
     mu_dyn_scale: float = 0.1
     riccati_refine: int = 1
     lq_refine_full: int = 0
     cost_scale: float = 1.0
+    # raise FloatingPointError naming the first NaN/Inf site (solve_checked)
     debug: bool = False
     # serial|parallel|stagedense|dense_oracle|assoc|pallas (the fused CUDA kernels)
     lq_solver: str = "serial"
@@ -120,23 +141,18 @@ def _check_supported(s: ProxDDPSettings) -> None:
             and s.rollout_type == "nonlinear"):
         raise ValueError(
             "nonlinear rollout requires an LQ solver with gains "
-            "(serial/assoc/stagedense); the parallel solver is restricted to "
+            "(serial/pallas/assoc/stagedense); the parallel solver is restricted to "
             "linear rollouts, and the dense oracle forms no gains")
-    unported = [
-        (s.sa_strategy == "filter", "sa_strategy='filter' (ROADMAP A26, filter_run)"),
-        (s.rollout_type != "linear", "rollout_type='nonlinear' (ROADMAP A27)"),
-        (s.hessian_approx != "gauss_newton",
-         "hessian_approx='exact' (ROADMAP A25, compute_vhp)"),
-        (s.verbose or s.record_history or s.record_iterates or s.callback is not None
-         or s.debug, "verbose/history/iterates/callback/debug (ROADMAP A30)"),
-        (s.lq_mesh is not None or s.lq_axis_name != "t",
-         "lq_mesh / lq_axis_name: legs over several devices (ROADMAP A19b)"),
-    ]
-    for bad, what in unported:
-        if bad:
-            raise NotImplementedError(f"not ported yet: {what}")
-    if s.sa_strategy not in ("armijo", "nonmonotone"):
+    if s.lq_mesh is not None or s.lq_axis_name != "t":
+        raise NotImplementedError(
+            "not ported yet: lq_mesh / lq_axis_name: legs over several devices "
+            "(ROADMAP A19b)")
+    if s.sa_strategy not in ("armijo", "nonmonotone", "filter"):
         raise ValueError(f"unknown sa_strategy {s.sa_strategy!r}")
+    if s.rollout_type not in ("linear", "nonlinear"):
+        raise ValueError(f"unknown rollout_type {s.rollout_type!r}")
+    if s.hessian_approx not in ("gauss_newton", "exact"):
+        raise ValueError(f"unknown hessian_approx {s.hessian_approx!r}")
     if s.multiplier_update_mode not in ("newton", "primal", "primal_dual"):
         raise ValueError(f"unknown multiplier_update_mode {s.multiplier_update_mode!r}")
 
@@ -180,6 +196,14 @@ class ProxDDPResults:
     num_iters: torch.Tensor  # int
     al_iter: torch.Tensor  # int
     mu_final: torch.Tensor
+    # (B, max_iters, 7) [alpha, inner_crit, prim, dual, merit, mu, preg] per
+    # Newton step when record_history, else (B, 0, 7)
+    history: torch.Tensor
+    # (B, max_iters, N+1, nx) / (B, max_iters, N, nu) / (B, max_iters, N+1,
+    # ndx) when record_iterates, else with a 0 in place of max_iters
+    history_xs: torch.Tensor
+    history_us: torch.Tensor
+    history_lams: torch.Tensor
 
 
 @dataclasses.dataclass
@@ -203,6 +227,11 @@ class _State:
     merit: torch.Tensor
     ls_avg: torch.Tensor
     ls_w: torch.Tensor
+    filt: FilterState
+    hist: torch.Tensor
+    hist_xs: torch.Tensor
+    hist_us: torch.Tensor
+    hist_lams: torch.Tensor
 
     def replace(self, **changes) -> "_State":
         return dataclasses.replace(self, **changes)
@@ -232,6 +261,15 @@ def _pad_time(a: torch.Tensor, head: bool) -> torch.Tensor:
 def _tmv(M: torch.Tensor, v: torch.Tensor) -> torch.Tensor:
     """Mᵀ v over leading axes: (..., i, j), (..., i) → (..., j)."""
     return (M.mT @ v.unsqueeze(-1)).squeeze(-1)
+
+
+def _debug_check(site: str, mask: torch.Tensor, *arrays) -> None:
+    """Raise where an element of ``mask`` holds a NaN or Inf in one of
+    ``arrays``, naming the site as the JAX solver's debug mode does (a
+    host sync, taken only when ``debug`` is set)."""
+    for a in arrays:
+        if a[0].numel() and not bool(torch.isfinite(a[mask]).all()):
+            raise FloatingPointError(f"NaN/Inf detected at: {site}")
 
 
 # ---------------------------------------------------------------------------
@@ -315,9 +353,10 @@ def _criterion(data: ProblemData, Lxs, Lus, mult: Multipliers):
 
 @named_scope("proxddp.lq_update")
 def _build_lq(problem: TrajOptProblem, data: ProblemData, derivs: ProblemDerivs,
-              mult: Multipliers, Lxs, Lus, mu, preg) -> LQRProblem:
+              mult: Multipliers, Lxs, Lus, mu, preg, vhp=None) -> LQRProblem:
     """Projected Jacobians + the LQ subproblem, stacked over knots 0..N
-    (terminal control slot = exact padding R = I)."""
+    (terminal control slot = exact padding R = I). ``vhp`` optionally
+    carries the exact second-order terms (Hxx, Hxu, Huu)."""
     N = problem.nsteps
     ndx, nu, nc, nct = problem.ndx, problem.nu, problem.nc, problem.nc_term
     ncp = max(nc, nct)
@@ -344,10 +383,13 @@ def _build_lq(problem: TrajOptProblem, data: ProblemData, derivs: ProblemDerivs,
         corr_xN = z(ndx)
         CxN_p = derivs.Cx_term
 
+    Lxx, Lxu, Luu = derivs.Lxx, derivs.Lxu, derivs.Luu
+    if vhp is not None:
+        Lxx, Lxu, Luu = Lxx + vhp[0], Lxu + vhp[1], Luu + vhp[2]
     p3 = preg.reshape(Bsz, 1, 1, 1)
-    Q = derivs.Lxx + p3 * eye_x
-    R = torch.cat([derivs.Luu + p3 * eye_u, eye_u.expand(Bsz, 1, nu, nu)], dim=1)
-    S = torch.cat([derivs.Lxu, z(1, ndx, nu)], dim=1)
+    Q = Lxx + p3 * eye_x
+    R = torch.cat([Luu + p3 * eye_u, eye_u.expand(Bsz, 1, nu, nu)], dim=1)
+    S = torch.cat([Lxu, z(1, ndx, nu)], dim=1)
     q = torch.cat([Lxs[:, :N] + corr_x, (Lxs[:, N] + corr_xN).unsqueeze(1)], dim=1)
     r = torch.cat([Lus, z(1, nu)], dim=1)
     A = torch.cat([derivs.A, z(1, ndx, ndx)], dim=1)
@@ -377,27 +419,34 @@ def _build_lq(problem: TrajOptProblem, data: ProblemData, derivs: ProblemDerivs,
 
 
 def _solve_lq_once(s: ProxDDPSettings, lq: LQRProblem, mu):
-    """One LQ solve → (dxs, dus, dvs, dlams), by ``s.lq_solver``."""
+    """One LQ solve → ((dxs, dus, dvs, dlams), gains or None), by
+    ``s.lq_solver``. The gains (``gar.riccati.Gains``, (B, N+1, ...)) are
+    what a nonlinear rollout reads: those of the serial recursion, assoc,
+    stagedense, or K1's for "pallas"; parallel and the dense oracle form
+    none."""
     with torch.profiler.record_function("proxddp.riccati"):
         if _is_parallel(s):
             return parallel_solve(lq, mu, max(s.lq_num_legs, 2),
-                                  refine_steps=s.riccati_refine)
-        if s.lq_solver == "stagedense":
-            return _stagedense.solve(lq, mu)[:4]
+                                  refine_steps=s.riccati_refine), None
         if s.lq_solver == "dense_oracle":
-            return dense_solve(lq, mu)
-        if s.lq_solver == "assoc":
-            return _assoc.solve(lq, mu, refine_steps=s.riccati_refine)[:4]
-        mod = _fused if s.lq_solver == "pallas" else _riccati
-        factors = mod.backward(lq, mu, refine_steps=s.riccati_refine)
-        return mod.forward(lq, factors)
+            return dense_solve(lq, mu), None
+        if s.lq_solver == "stagedense":
+            *sol, factors = _stagedense.solve(lq, mu)
+        elif s.lq_solver == "assoc":
+            *sol, factors = _assoc.solve(lq, mu, refine_steps=s.riccati_refine)
+        else:
+            mod = _fused if s.lq_solver == "pallas" else _riccati
+            factors = mod.backward(lq, mu, refine_steps=s.riccati_refine)
+            sol = mod.forward(lq, factors)
+        return tuple(sol), factors.gains
 
 
 def _solve_lq(s: ProxDDPSettings, lq: LQRProblem, mu):
-    """LQ direction, with optional full-KKT iterative refinement: the
-    residual is accumulated in float64 and the correction solved in the
-    working precision by the same LQ solver (K δ = −res, new = old + δ)."""
-    sol = _solve_lq_once(s, lq, mu)
+    """LQ direction and gains, with optional full-KKT iterative refinement
+    of the direction: the residual is accumulated in float64 and the
+    correction solved in the working precision by the same LQ solver
+    (K δ = −res, new = old + δ)."""
+    sol, gains = _solve_lq_once(s, lq, mu)
     if s.lq_refine_full > 0:
         dt, hi = lq.dtype, torch.float64
         lq_hi = tree_map(lambda a: a.to(hi), lq)
@@ -407,9 +456,9 @@ def _solve_lq(s: ProxDDPSettings, lq: LQRProblem, mu):
                                         mueq=mu.to(hi))
                 res_lq = lq.replace(q=res.q.to(dt), r=res.r.to(dt), d=res.d.to(dt),
                                     f=res.f.to(dt), g0=res.g0.to(dt))
-                corr = _solve_lq_once(s, res_lq, mu)
+                corr, _ = _solve_lq_once(s, res_lq, mu)
             sol = tuple(a + c for a, c in zip(sol, corr))
-    return sol
+    return sol, gains
 
 
 # ---------------------------------------------------------------------------
@@ -443,8 +492,20 @@ def solve(
             problem.replace_x0(problem.x0.unsqueeze(0)), settings, add(xs_init),
             add(us_init), add(vs_init), add(lams_init), mu_init, tol)
         return tree_map(lambda a: a[0], res)
+    if settings.callback is not None:
+        raise ValueError("callback observes one solve: pass an unbatched problem "
+                         "(x0 of shape (nx,))")
     return _solve_batched(problem, settings, xs_init, us_init, vs_init, lams_init,
                           mu_init, tol)
+
+
+def solve_checked(problem: TrajOptProblem, settings: ProxDDPSettings = ProxDDPSettings(),
+                  **kwargs) -> ProxDDPResults:
+    """``solve`` in debug mode: raises ``FloatingPointError("NaN/Inf
+    detected at: <site>")`` at the first NaN- or Inf-poisoned site (problem
+    evaluation, derivatives, multiplier estimates, the LQ direction)
+    instead of reporting conv=False. Each check is a host sync."""
+    return solve(problem, dataclasses.replace(settings, debug=True), **kwargs)
 
 
 def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, tol):
@@ -479,6 +540,8 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
     zero = xs0.new_zeros(Bsz)
     izero = torch.zeros(Bsz, dtype=torch.int32, device=dev)
     bfalse = torch.zeros(Bsz, dtype=torch.bool, device=dev)
+    n_hist = s.max_iters if s.record_history else 0
+    n_iter = s.max_iters if s.record_iterates else 0
     st = _State(
         pt=Point(xs=xs0, us=us0, vs=vs0, vs_term=vsT0, lams=lams0),
         prev_vs=vs0, prev_vs_term=vsT0, mu=mu_init,
@@ -488,6 +551,11 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         iters=izero, al_iter=izero, conv=bfalse, failed=bfalse,
         prim_infeas=zero, dual_infeas=zero, inner_crit=zero, traj_cost=zero,
         merit=zero, ls_avg=zero, ls_w=zero,
+        filt=filter_init(s.filter_capacity, Bsz, dt, dev),
+        hist=xs0.new_zeros((Bsz, n_hist, 7)),
+        hist_xs=xs0.new_zeros((Bsz, n_iter) + xs0.shape[1:]),
+        hist_us=xs0.new_zeros((Bsz, n_iter) + us0.shape[1:]),
+        hist_lams=xs0.new_zeros((Bsz, n_iter) + lams0.shape[1:]),
     )
 
     # internal cost normalization (ProxDDPSettings.cost_scale): cost values,
@@ -525,6 +593,33 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
             lams=pt.lams + _b(alpha, pt.lams) * dpt.lams,
         )
 
+    @named_scope("proxddp.rollout")
+    def try_step_nonlinear(pt: Point, dpt: Point, gains, alpha):
+        """Closed-loop re-rollout of the dynamics through the LQ gains, one
+        step per knot, dx measured against the current iterate (dxs[:, 0] =
+        0); λ stepped linearly."""
+        space = problem.space
+
+        def roll(dyn, xs, us, vs, kff, K, zff, Z, a):
+            x = xs[0]
+            xs_t, us_t, vs_t = [x], [], []
+            for t in range(N):
+                dx = space.difference(xs[t], x)
+                u = us[t] + a * kff[t] + K[t] @ dx
+                vs_t.append(vs[t] + a * zff[t, :nc] + Z[t, :nc] @ dx)
+                x = stage_at(dyn, t).forward(space, x, u)
+                xs_t.append(x)
+                us_t.append(u)
+            return (torch.stack(xs_t), torch.stack(us_t), torch.stack(vs_t),
+                    space.difference(xs[N], x))
+
+        xs, us, vs, dxN = _vmap_batch(roll, problem.dynamics, pt.xs, pt.us, pt.vs, gains.kff,
+                                      gains.K, gains.zff, gains.Z, alpha)
+        vs_term = (pt.vs_term + _b(alpha, pt.vs_term) * gains.zff[:, N, :nct]
+                   + _riccati.mv(gains.Z[:, N, :nct], dxN))
+        return Point(xs=xs, us=us, vs=vs, vs_term=vs_term,
+                     lams=pt.lams + _b(alpha, pt.lams) * dpt.lams)
+
     ls_opts = LinesearchOptions(
         armijo_c1=s.armijo_c1, alpha_min=s.alpha_min, max_num_steps=s.ls_max_steps,
         contraction_min=s.ls_contraction_min, contraction_max=s.ls_contraction_max,
@@ -532,14 +627,20 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         beta_dec=s.ls_beta,
     )
 
-    def newton_step(st: _State, data, mult, derivs, Lxs_c, Lus_c):
+    def newton_step(st: _State, data, mult, derivs, Lxs_c, Lus_c, stepping):
         preg = torch.where(
             st.preg_last == 0.0,
             torch.full_like(st.preg, max(s.reg_init, s.reg_min)),
             torch.clamp(st.preg_last * s.reg_dec_k, min=s.reg_min),
         )
-        lq = _build_lq(problem, data, derivs, mult, Lxs_c, Lus_c, st.mu, preg)
-        dxs, dus_full, dvs_full, dlams = _solve_lq(s, lq, st.mu)
+        # exact Hessian: weighted by the current (Newton) duals
+        vhp = (compute_vhp(problem, st.pt.xs, st.pt.us, st.pt.lams, st.pt.vs,
+                           st.pt.vs_term) if s.hessian_approx == "exact" else None)
+        lq = _build_lq(problem, data, derivs, mult, Lxs_c, Lus_c, st.mu, preg, vhp=vhp)
+        (dxs, dus_full, dvs_full, dlams), gains = _solve_lq(s, lq, st.mu)
+        if s.debug:
+            _debug_check("Riccati backward/forward (LQ direction)", stepping,
+                         dxs, dus_full, dlams)
         m0 = _pad_time(dxs.new_ones((Bsz, N, 1)), head=True)  # zero row 0
         dxs = dxs * m0
         dlams = dlams * m0
@@ -550,25 +651,40 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         Lxs_p, Lus_p = _lagrangian_derivs(problem, derivs, mult.lams_plus,
                                           mult.vs_plus, mult.vs_plus_term)
         dphi0 = (Lxs_p * dpt.xs).flatten(1).sum(1) + (Lus_p * dpt.us).flatten(1).sum(1)
-        # ascent ⇒ indefinite model: reject the step, escalate preg
+        # ascent ⇒ indefinite model: the merit linesearches reject the step
+        # and escalate preg; the filter rejects only non-finite trials
         ascent = dphi0 >= 0.0
+        bad_dir = ascent if s.sa_strategy != "filter" else torch.zeros_like(ascent)
         exit_dphi = (~ascent) & (-dphi0 <= s.dphi_thresh)
 
         phi0 = st.merit
         ls_avg = (s.ls_avg_eta * st.ls_w * st.ls_avg + phi0) / (s.ls_avg_eta * st.ls_w + 1.0)
         ls_w = s.ls_avg_eta * st.ls_w + 1.0
 
-        def phi_eval(alpha):
-            pt_t = try_step(st.pt, dpt, alpha)
+        def ls_eval(alpha):
+            if s.rollout_type == "nonlinear":
+                pt_t = try_step_nonlinear(st.pt, dpt, gains, alpha)
+            else:
+                pt_t = try_step(st.pt, dpt, alpha)
             data_t, mult_t, phi_t = eval_point(pt_t, st.prev_vs, st.prev_vs_term, st.mu)
             return phi_t, (pt_t, data_t, mult_t)
 
-        phi_ref = ls_avg if s.sa_strategy == "nonmonotone" else phi0
-        alpha_f, phi_f, (pt_f, data_f, mult_f) = armijo_run(
-            phi_eval, phi0, dphi0, ls_opts, phi_ref=phi_ref)
+        if s.sa_strategy == "filter":
+            def pair_eval(alpha):
+                phi_t, payload = ls_eval(alpha)
+                return phi_t, payload[2].prim_infeas, payload
 
-        # accept unless ascent or non-finite merit: then revert and escalate
-        ok = torch.isfinite(phi_f) & (~ascent)
+            alpha_f, phi_f, (pt_f, data_f, mult_f), filt_f = filter_run(
+                pair_eval, st.filt, ls_opts, beta=s.filter_beta)
+        else:
+            phi_ref = ls_avg if s.sa_strategy == "nonmonotone" else phi0
+            alpha_f, phi_f, (pt_f, data_f, mult_f) = armijo_run(
+                ls_eval, phi0, dphi0, ls_opts, phi_ref=phi_ref)
+            filt_f = st.filt
+
+        # accept unless a rejected direction or non-finite merit: then
+        # revert and escalate
+        ok = torch.isfinite(phi_f) & (~bad_dir)
         pt_f = tree_where(ok, pt_f, st.pt)
         data_f = tree_where(ok, data_f, data)
         mult_f = tree_where(ok, mult_f, mult)
@@ -582,10 +698,31 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
             preg,
         )
         fail_reg = hit_min & (preg >= s.reg_max)
+
+        if s.verbose:
+            for b in stepping.nonzero().flatten().tolist():
+                logger.print_row(st.iters[b], alpha_f[b], st.inner_crit[b],
+                                 mult_f.prim_infeas[b], st.dual_infeas[b], preg[b],
+                                 dphi0[b], phi_f[b], phi_f[b] - phi0[b], st.al_iter[b],
+                                 st.mu[b])
+        # the row of this step (clamped: a row is written only where the
+        # step is taken, and there iters < max_iters)
+        row = (torch.arange(Bsz, device=dev), st.iters.long().clamp(max=s.max_iters - 1))
+        hist, hist_xs, hist_us, hist_lams = st.hist, st.hist_xs, st.hist_us, st.hist_lams
+        if s.record_history:
+            hist = hist.index_put(row, torch.stack([
+                alpha_f, st.inner_crit, mult_f.prim_infeas, st.dual_infeas, phi_f, st.mu,
+                preg], dim=-1))
+        if s.record_iterates:
+            hist_xs = hist_xs.index_put(row, pt_f.xs)
+            hist_us = hist_us.index_put(row, pt_f.us)
+            hist_lams = hist_lams.index_put(row, pt_f.lams)
         st = st.replace(
             pt=pt_f, traj_cost=data_f.traj_cost, merit=phi_f,
             prim_infeas=mult_f.prim_infeas, preg=preg_next, preg_last=preg_next,
-            ls_avg=ls_avg, ls_w=ls_w, iters=st.iters + 1, failed=st.failed | fail_reg,
+            ls_avg=ls_avg, ls_w=ls_w, filt=filt_f, hist=hist, hist_xs=hist_xs,
+            hist_us=hist_us, hist_lams=hist_lams, iters=st.iters + 1,
+            failed=st.failed | fail_reg,
         )
         return st, data_f, mult_f, exit_dphi
 
@@ -594,6 +731,13 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         the subproblem criterion already passes."""
         with torch.profiler.record_function("proxddp.derivatives"):
             derivs = compute_derivatives(st.pt.xs, st.pt.us)
+        if s.debug:
+            _debug_check("problem evaluation at accepted iterate (dynamics rollout / cost)",
+                         active, st.pt.xs, data.traj_cost, data.dyn_defects)
+            _debug_check("problem derivatives (dynamics/cost Jacobians)", active,
+                         derivs.A, derivs.B, derivs.Lx)
+            _debug_check("AL multiplier estimates (computeMultipliers)", active,
+                         mult.lams_plus, mult.vs_plus)
         Lxs_c, Lus_c = _lagrangian_derivs(problem, derivs, st.pt.lams, st.pt.vs,
                                           st.pt.vs_term)
         # force_initial_condition: zero row 0 (a multiply, as in the JAX solver)
@@ -602,10 +746,15 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         converged = (dual_infeas <= target_dual) & (mult.prim_infeas <= target_tol)
         exit_ok = (inner_crit <= st.inner_tol) | converged
         st = st.replace(inner_crit=inner_crit, dual_infeas=dual_infeas, conv=converged)
+        if s.callback is not None:
+            host = lambda a: a[0].detach().cpu().numpy()
+            s.callback(host(st.iters), host(st.pt.xs), host(st.pt.us), host(st.pt.lams),
+                       host(mult.prim_infeas), host(dual_infeas))
         no_step = (st, data, mult, torch.ones_like(exit_ok))
-        if not bool((active & ~exit_ok).any()):
+        stepping = active & ~exit_ok
+        if not bool(stepping.any()):
             return no_step
-        stepped = newton_step(st, data, mult, derivs, Lxs_c, Lus_c)
+        stepped = newton_step(st, data, mult, derivs, Lxs_c, Lus_c, stepping)
         return tree_where(exit_ok, no_step, stepped)
 
     def inner_loop(st: _State, outer_active):
@@ -674,7 +823,10 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         lams=st.pt.lams * inv_g, conv=st.conv, prim_infeas=st.prim_infeas,
         dual_infeas=st.dual_infeas, traj_cost=st.traj_cost * inv_g,
         merit_value=st.merit, num_iters=st.iters, al_iter=st.al_iter, mu_final=st.mu,
+        history=st.hist, history_xs=st.hist_xs, history_us=st.hist_us,
+        history_lams=st.hist_lams,
     )
 
 
 proxddp_solve = solve
+proxddp_solve_checked = solve_checked

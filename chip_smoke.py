@@ -19,7 +19,12 @@ the bench solve through each, and one problem at N = 2048 through each
 beside the fused kernels), then the second path: the talos walk at its published size
 (N = 195, 16 perturbed scenarios, float32, solved to convergence through
 K1's walk instantiation and K2, against the serial path and a float64
-solve on the card) and its MPC cycle at B = 1. It checks the results and
+solve on the card) and its MPC cycle at B = 1; then the solvers of slice
+4: the lqr56 chain without its box by FDDP and by fused ProxDDP, the
+walk's 16 scenarios by FDDP in float64 and by fused ProxDDP with the
+nonlinear rollout through K1's gains, and the pendulum example's FDDP,
+filter + nonlinear + box and exact-Hessian solves on the card against the
+CPU (both in a child process beside the walk's solves). It checks the results and
 prints one JSON line of kernel reports and a final status line. Any
 failed check raises, and the script exits non-zero (the one exception,
 K1 at the bench widths and µ = 1e-6, where the JAX Pallas kernel fails
@@ -29,7 +34,9 @@ without a CUDA device it exits non-zero before doing anything.
 
 from __future__ import annotations
 
+import contextlib
 import json
+import multiprocessing
 import re
 import subprocess
 import sys
@@ -40,6 +47,7 @@ import torch
 
 from aligator_tpu_torch.convert import lqr_from_numpy, problem_from_numpy
 from aligator_tpu_torch.examples import talos_walk as TW
+from aligator_tpu_torch.examples.pendulum import create_pendulum_problem
 from aligator_tpu_torch.gar import assoc as GA
 from aligator_tpu_torch.gar import dense as GD
 from aligator_tpu_torch.gar import fused_riccati as FR
@@ -52,6 +60,8 @@ from aligator_tpu_torch.mpc import init_mpc_state, mpc_step
 from aligator_tpu_torch.multibody.algorithms import frame_placement
 from aligator_tpu_torch.problem import compute_derivatives, us_default_init, xs_default_init
 from aligator_tpu_torch.probes import layout_probe as LP
+from aligator_tpu_torch.solvers import fddp as FD
+from aligator_tpu_torch.solvers.fddp import FDDPSettings, fddp_solve
 from aligator_tpu_torch.solvers.proxddp import ProxDDPSettings, solve
 from aligator_tpu_torch.utils import cuda_build
 from aligator_tpu_torch.utils.device import full_f32_matmuls
@@ -229,6 +239,22 @@ def check_k2(label, g, v, x0, l0, mode, seen) -> dict:
         errs[name] = max_err(a, b)
         check(errs[name] <= tol(b, 1e-3, mode), f"K2 {name} {label}: {errs[name]}")
     return errs
+
+
+def check_k1(label, knots, mu) -> tuple:
+    """K1 against its plain version on the same inputs under the
+    bench-widths gate 1e-4·max|·|: (kernel gains, plain gains, plain
+    values, max abs err per output)."""
+    gk, vk = FR.backward_sweep_batched(knots, mu)
+    torch.cuda.synchronize()
+    gp, vp = FR.backward_sweep_batched_ref(knots, mu)
+    errs = {}
+    for name in ("kff", "yff", "K", "Acl", "Vxx", "vx"):
+        a, b = (getattr(gk, name), getattr(gp, name)) if hasattr(gk, name) else (
+            getattr(vk, name), getattr(vp, name))
+        errs[name] = max_err(a, b)
+        check(errs[name] <= tol(b, 0.0, "rel"), f"K1 {label} {name}: {errs[name]}")
+    return gk, gp, vp, errs
 
 
 def random_gains(gen, B, N, nx, nu, nc, dev):
@@ -553,22 +579,34 @@ def trace_device(fn, host_ops: bool = True):
     kernels, their busy time as the union of their intervals in µs, device
     time by kernel name). Empty when the profiler records no device time.
     ``host_ops=False`` records the device side only, for runs of ~10⁵
-    kernels whose host operations would swamp the trace."""
+    kernels whose host operations would swamp the trace. The kernels are
+    read from the profiler's raw events: building its event tree costs
+    minutes at ~10⁵–10⁶ kernels."""
+    from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile
 
     torch.cuda.synchronize()
     activities = [ProfilerActivity.CUDA] + ([ProfilerActivity.CPU] if host_ops else [])
     with profile(activities=activities) as prof:
+        # once the process has taken large traces, the first kernels of a
+        # trace are missing from it, 2 to 16 of them as seen on an H100
+        # (K1, the second kernel of the fused row at B = 1, N = 2048, among
+        # them, with or without a 1 s pause first): 256 spin kernels go
+        # first and are left out
+        for _ in range(256):
+            torch.cuda._sleep(1000)
+        torch.cuda.synchronize()
         t0 = time.perf_counter()
         fn()
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     # device-side events, without the record_function ranges mirrored there
-    kernels = [e for e in prof.events() if e.device_type.name == "CUDA"
-               and not getattr(e, "is_user_annotation", False)]
+    kernels = [e for e in prof.profiler.kineto_results.events()
+               if e.device_type() == DeviceType.CUDA and not e.is_user_annotation()
+               and "spin_kernel" not in e.name()]
     if not kernels:
         return wall_us, [], 0.0, {}
-    spans = sorted((e.time_range.start, e.time_range.end) for e in kernels)
+    spans = sorted((e.start_ns() / 1e3, e.end_ns() / 1e3) for e in kernels)
     busy, cur_s, cur_e = 0.0, *spans[0]
     for a, b in spans[1:]:
         if a > cur_e:
@@ -579,7 +617,7 @@ def trace_device(fn, host_ops: bool = True):
     busy += cur_e - cur_s
     by_name = {}
     for e in kernels:
-        by_name[e.name] = by_name.get(e.name, 0.0) + e.time_range.elapsed_us()
+        by_name[e.name()] = by_name.get(e.name(), 0.0) + e.duration_ns() / 1e3
     return wall_us, kernels, busy, by_name
 
 
@@ -791,6 +829,17 @@ WALK_SETTINGS = dict(tol=1e-4, dual_tol=1e-4, mu_init=1e-8, max_iters=40, riccat
 WALK_MPC_SETTLE, WALK_MPC_STEPS = 3, 5
 
 
+def walk_scenarios(problem, model):
+    """The walk's 16 scenarios: x0 with the joint velocities perturbed by
+    0.01·N(0, 1) from default_rng(7) (bench.py:335-340)."""
+    dv = 0.01 * np.random.default_rng(7).standard_normal((WALK_BATCH, model.nv)).astype(
+        np.float32)
+    x0 = problem.x0.cpu().numpy()
+    x0s = np.concatenate([np.tile(x0[:model.nq], (WALK_BATCH, 1)), x0[model.nq:] + dv], axis=1)
+    return problem.replace_x0(torch.as_tensor(x0s, dtype=problem.x0.dtype,
+                                              device=problem.x0.device))
+
+
 def k1_walk_check(dev):
     """K1's walk instantiation <56, 22, 0> against its plain version at the
     walk's batch and horizon (B = 16, N = 195), at the walk's µ_init and
@@ -805,15 +854,7 @@ def k1_walk_check(dev):
     gains, errs = {}, {}
     for mu_val in (1e-8, 1e-2):
         mu = torch.full((Bsz,), mu_val, device=dev)
-        gk, vk = FR.backward_sweep_batched(knots, mu)
-        torch.cuda.synchronize()
-        gp, vp = FR.backward_sweep_batched_ref(knots, mu)
-        e = {}
-        for name in ("kff", "yff", "K", "Acl", "Vxx", "vx"):
-            a, b = (getattr(gk, name), getattr(gp, name)) if hasattr(gk, name) else (
-                getattr(vk, name), getattr(vp, name))
-            e[name] = max_err(a, b)
-            check(e[name] <= tol(b, 0.0, "rel"), f"K1 walk {name} mu={mu_val:g}: {e[name]}")
+        gk, gp, vp, e = check_k1(f"walk mu={mu_val:g}", knots, mu)
         gains[mu_val], errs[mu_val] = (gk, gp, vp), e
         print(f"kernels K1 walk widths B={Bsz} N={N} nx={nx} nu={nu} nc={nc} mu={mu_val:g} "
               f"({FR.backward_variant(nx, nu, nc)}): max abs err {json.dumps(e)}")
@@ -864,15 +905,14 @@ def walk_phase(dev):
     points: 16 scenarios solved fused to convergence, against the serial
     path and a float64 solve on the card; the traced kernel count of one
     derivative pass; one capped solve traced for the device's share; the
-    MPC cycle at B = 1. Returns K1's and K2's launches per fused solve."""
+    MPC cycle at B = 1. Returns K1's and K2's launches per fused solve and
+    the fused solve's traj costs."""
     t_phase = time.perf_counter()
     problem, model = TW.create_walk_problem(WALK_TSS, WALK_TDS, dtype=torch.float32,
                                             device=dev)
     nv, nq, N = model.nv, model.nq, problem.nsteps
-    dv = 0.01 * np.random.default_rng(7).standard_normal((WALK_BATCH, nv)).astype(np.float32)
     x0 = problem.x0.cpu().numpy()
-    x0s = np.concatenate([np.tile(x0[:nq], (WALK_BATCH, 1)), x0[nq:] + dv], axis=1)
-    prob16 = problem.replace_x0(torch.as_tensor(x0s, device=dev))
+    prob16 = walk_scenarios(problem, model)
     fused = ProxDDPSettings(lq_solver="pallas", **WALK_SETTINGS)
 
     reset_counts()
@@ -907,7 +947,7 @@ def walk_phase(dev):
     check(bool((res.num_iters == res_s.num_iters).all()), "walk iteration counts agree")
 
     p64, _ = TW.create_walk_problem(WALK_TSS, WALK_TDS, dtype=torch.float64, device=dev)
-    p64 = p64.replace_x0(torch.as_tensor(x0s[:1], dtype=torch.float64, device=dev))
+    p64 = p64.replace_x0(prob16.x0[:1].to(torch.float64))
     r64 = solve(p64, ProxDDPSettings(lq_solver="serial", **WALK_SETTINGS))
     c32, c64 = float(res.traj_cost[0]), float(r64.traj_cost[0])
     print(f"walk: scenario 0 float32 fused traj cost {c32:.6f} vs float64 serial {c64:.6f} "
@@ -980,7 +1020,239 @@ def walk_phase(dev):
           f"{prims}, dual {duals}, (K1, K2) launches per step {per_step}")
     check(all(a == b >= 1 for a, b in per_step), "walk MPC kernel launch counts")
     print(f"walk phase: {time.perf_counter() - t_phase:.1f} s")
-    return {"riccati_backward_walk": k1, "riccati_forward_walk": k2}
+    return {"riccati_backward_walk": k1, "riccati_forward_walk": k2}, res.traj_cost
+
+
+# Slice 4: FDDP, and ProxDDP's filter, nonlinear rollout and exact Hessian.
+# The pendulum example's solves (examples/pendulum.py:66-80) and the exact
+# Hessian swing-up of tests/test_exact_hessian.py:95-103, each held against
+# the same solve on the CPU: (builder keywords, solve).
+PENDULUM_CASES = {
+    "fddp": ({}, lambda p: fddp_solve(p, FDDPSettings(tol=1e-5, max_iters=200))),
+    "proxddp filter+nonlinear+box": ({}, lambda p: solve(p, ProxDDPSettings(
+        tol=1e-5, mu_init=1e-2, max_iters=400, sa_strategy="filter",
+        rollout_type="nonlinear"))),
+    "proxddp exact hessian": (dict(nsteps=40, u_max=None, u_weight=1e-2), lambda p: solve(
+        p, ProxDDPSettings(hessian_approx="exact", tol=1e-3, mu_init=1e-2, max_iters=80,
+                           rollout_type="nonlinear"))),
+}
+WALK_FDDP = FDDPSettings(tol=1e-4, max_iters=100)
+
+
+def pendulum_solves(device) -> dict:
+    """Each pendulum case solved on ``device`` (float64): name → (xs, us,
+    conv, iterations, seconds) as numpy arrays and numbers."""
+    out = {}
+    for name, (kw, run) in PENDULUM_CASES.items():
+        problem = create_pendulum_problem(dtype=torch.float64, device=device, **kw)
+        t0 = time.perf_counter()
+        res = run(problem)
+        if device != "cpu":
+            torch.cuda.synchronize()
+        out[name] = (res.xs.cpu().numpy(), res.us.cpu().numpy(), bool(res.conv),
+                     int(res.num_iters), time.perf_counter() - t0)
+    return out
+
+
+def walk_fddp(dev) -> dict:
+    """The walk's 16 scenarios by FDDP in float64: the solve, its line-search
+    rollouts, and one rollout traced for its device kernels."""
+    problem, model = TW.create_walk_problem(WALK_TSS, WALK_TDS, dtype=torch.float64,
+                                            device=dev)
+    walk64 = walk_scenarios(problem, model)
+    N, ndx, nu = problem.nsteps, problem.ndx, problem.nu
+    with counting_calls(FD, "_forward") as rollouts:
+        t0 = time.perf_counter()
+        res = fddp_solve(walk64, WALK_FDDP)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    zeros = lambda *s: torch.zeros((WALK_BATCH,) + s, dtype=torch.float64, device=dev)
+    _, kern, busy, _ = trace_device(lambda: FD._forward(
+        walk64, res.xs, res.us, zeros(N + 1, ndx), zeros(N, nu), zeros(N, nu, ndx),
+        torch.ones(WALK_BATCH, dtype=torch.float64, device=dev)), host_ops=False)
+    return dict(N=N, iters=res.num_iters.tolist(), conv=res.conv.tolist(),
+                prim=float(res.prim_infeas.max()), dual=float(res.dual_infeas.max()),
+                finite=bool(torch.isfinite(res.xs).all() and torch.isfinite(res.us).all()),
+                wall=wall, rollouts=rollouts[0], kernels=len(kern), busy_ms=busy / 1e3,
+                traj_cost=res.traj_cost.cpu().numpy())
+
+
+def _walk_fddp_child(conn) -> None:
+    conn.send(walk_fddp(torch.device("cuda")))
+    conn.close()
+
+
+def _pendulum_child(conn) -> None:
+    """The pendulum cases on the CPU, then on the card, in a child process
+    that runs beside the walk's solves in the parent (each side is bound
+    by its host thread)."""
+    torch.set_num_threads(1)
+    conn.send((pendulum_solves("cpu"), pendulum_solves(torch.device("cuda"))))
+    conn.close()
+
+
+@contextlib.contextmanager
+def counting_calls(module, name: str):
+    """Count the calls of ``module.name`` (looked up at call time) while
+    the block runs; yields a one-element list holding the count."""
+    orig, box = getattr(module, name), [0]
+
+    def wrapped(*args, **kwargs):
+        box[0] += 1
+        return orig(*args, **kwargs)
+
+    setattr(module, name, wrapped)
+    try:
+        yield box
+    finally:
+        setattr(module, name, orig)
+
+
+def median_rate(fn, batch: int) -> list:
+    rates = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        rates.append(batch / (time.perf_counter() - t0))
+    return rates
+
+
+def rel_gap(a, b) -> float:
+    """max |a − b| / max(1, |b|) over a batch of traj costs."""
+    return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
+
+
+def solvers_phase(dev, walk_cost) -> None:
+    """FDDP and ProxDDP's filter, nonlinear rollout and exact Hessian on
+    the card: (1) the lqr56 chain without its box by FDDP and by fused
+    ProxDDP (K1 <56, 22, 0> and K2); (2) the talos walk's 16 scenarios by
+    FDDP in float64; (3) the walk by fused ProxDDP with the nonlinear
+    rollout reading K1's gains; (4) the pendulum cases on the card against
+    the CPU. (1) runs alone. Each of (2)-(4) is bound by the host thread
+    that issues its kernels, so (2) and (4) run in child processes beside
+    (3): the card is shared by three processes, and those three walls are
+    contended, those of runs side by side."""
+    t_phase = time.perf_counter()
+    lqr56_chain(dev)
+    ctx = multiprocessing.get_context("spawn")
+    children, pipes = [], {}
+    try:
+        for name, target in (("walk fddp", _walk_fddp_child), ("pendulum", _pendulum_child)):
+            recv, send = ctx.Pipe(duplex=False)
+            children.append(ctx.Process(target=target, args=(send,), daemon=True))
+            children[-1].start()
+            pipes[name] = recv
+        _solvers_phase(dev, walk_cost, pipes)
+    finally:
+        for child in children:
+            if child.is_alive():
+                child.terminate()
+            child.join()
+    print(f"solvers phase: {time.perf_counter() - t_phase:.1f} s")
+
+
+def lqr56_chain(dev) -> None:
+    """The lqr56 chain without its box (bench-lqr) by FDDP and by fused
+    ProxDDP, after K1 <56, 22, 0> and K2 are held against their plain
+    versions at the chain's shape."""
+    arr = lqr_bench_arrays()
+    chain = problem_from_numpy(arr["A"], arr["B"], arr["c"], arr["Q"], arr["R"], arr["Qf"],
+                               batch_x0(BATCH), NSTEPS, device=dev, dtype=torch.float32)
+    check(FR.backward_variant(NX, NU, 0) == "walk", "the chain takes K1's <56, 22, 0>")
+    f_set = FDDPSettings(tol=1e-5, max_iters=50)
+    p_set = ProxDDPSettings(tol=1e-5, mu_init=1e-7, max_iters=40, lq_solver="pallas")
+    lq = lqr_from_numpy(random_lq_arrays(np.random.default_rng(9), BATCH, NSTEPS, NX, NU, 0),
+                        device=dev, dtype=torch.float32)
+    knots = knots_of(lq)
+    gen = torch.Generator(device=dev).manual_seed(9)
+    x0 = torch.randn(BATCH, NX, device=dev, generator=gen)
+    l0 = torch.randn(BATCH, NX, device=dev, generator=gen)
+    for mu_val in (p_set.mu_init, 1e-2):
+        mu = torch.full((BATCH,), mu_val, device=dev)
+        _, gp, vp, e1 = check_k1(f"chain mu={mu_val:g}", knots, mu)
+        e2 = check_k2(f"chain mu={mu_val:g}", gp, vp, x0, l0, "rel", set())
+        print(f"fddp: kernels at the chain's shape B={BATCH} N={NSTEPS} nx={NX} nu={NU} nc=0 "
+              f"mu={mu_val:g}: K1 ({FR.backward_variant(NX, NU, 0)}) max abs err "
+              f"{json.dumps(e1)}; K2 max abs err {json.dumps(e2)}")
+
+    res_f = fddp_solve(chain, f_set)
+    reset_counts()
+    res_p = solve(chain, p_set)
+    torch.cuda.synchronize()
+    k1, k2 = read_counts()["riccati_backward"], read_counts()["riccati_forward"]
+    dx = max_err(res_f.xs, res_p.xs) / float(res_p.xs.abs().max())
+    du = max_err(res_f.us, res_p.us) / float(res_p.us.abs().max())
+    rows = {}
+    for name, fn, res in (("fddp", lambda: fddp_solve(chain, f_set), res_f),
+                          ("proxddp fused", lambda: solve(chain, p_set), res_p)):
+        rates = median_rate(fn, BATCH)
+        _, kern, _, _ = trace_device(fn, host_ops=False)
+        rows[name] = dict(iterations=int(res.num_iters.max()),
+                          solves_per_s=float(np.median(rates)), kernels=len(kern) or None)
+        print(f"fddp: lqr56 chain B={BATCH} N={NSTEPS} nc=0 f32, {name}: conv "
+              f"{int(res.conv.sum())}/{BATCH}, iterations {rows[name]['iterations']}, "
+              f"solves/s {[round(r, 1) for r in rates]} (median "
+              f"{rows[name]['solves_per_s']:.1f}, alone on the card), device kernels per solve "
+              f"{rows[name]['kernels'] or 'not measured'}")
+    print(f"fddp: lqr56 chain, FDDP vs fused ProxDDP max|dxs|/max|xs| {dx:.3e}, max|dus|/max|us| "
+          f"{du:.3e}; the fused solve launched K1 {k1} and K2 {k2} times")
+    check(bool(res_f.conv.all()) and bool(res_p.conv.all()), "lqr56 chain: both converge")
+    check(dx <= 1e-4 and du <= 1e-4, "lqr56 chain: FDDP and fused ProxDDP agree to 1e-4")
+    check(k1 >= 1 and k2 >= 1, "lqr56 chain: the fused solve went through K1 and K2")
+
+
+def _solvers_phase(dev, walk_cost, pipes) -> None:
+    # (3) the walk by fused ProxDDP with the nonlinear rollout through K1's gains
+    walk32 = walk_scenarios(*TW.create_walk_problem(WALK_TSS, WALK_TDS, dtype=torch.float32,
+                                                    device=dev))
+    nl = ProxDDPSettings(lq_solver="pallas", rollout_type="nonlinear", **WALK_SETTINGS)
+    reset_counts()
+    t0 = time.perf_counter()
+    res = solve(walk32, nl)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    k1, k2 = read_counts()["riccati_backward"], read_counts()["riccati_forward"]
+    gap = rel_gap(res.traj_cost, walk_cost)
+    print(f"solvers: talos walk, fused ProxDDP with the nonlinear rollout: conv "
+          f"{int(res.conv.sum())}/{WALK_BATCH}, iterations {res.num_iters.tolist()}, prim max "
+          f"{float(res.prim_infeas.max()):.3e}, dual max {float(res.dual_infeas.max()):.3e}, "
+          f"wall {wall:.1f} s (beside the two children), K1 {k1} and K2 {k2} launches per "
+          f"solve, traj cost max rel gap to the linear rollout's {gap:.3e}")
+    check(bool(res.conv.all()), "every walk scenario converges with the nonlinear rollout")
+    check(float(res.prim_infeas.max()) <= 1e-4 and float(res.dual_infeas.max()) <= 1e-4,
+          "nonlinear-rollout walk prim and dual <= 1e-4")
+    check(gap <= 1e-3, "nonlinear vs linear rollout traj cost to 1e-3")
+    check(k1 >= 1 and k2 >= 1, "the nonlinear-rollout walk went through K1 and K2")
+
+    # (2) the talos walk by FDDP in float64 (the child process's result)
+    check(pipes["walk fddp"].poll(1200), "the walk FDDP solve of the child process finished")
+    w = pipes["walk fddp"].recv()
+    gap = rel_gap(torch.as_tensor(w["traj_cost"], dtype=torch.float32, device=dev), walk_cost)
+    print(f"fddp: talos walk N={w['N']} B={WALK_BATCH} f64, tol {WALK_FDDP.tol:g}: conv "
+          f"{sum(w['conv'])}/{WALK_BATCH}, iterations {w['iters']}, prim max {w['prim']:.3e}, "
+          f"dual max {w['dual']:.3e}, wall {w['wall']:.1f} s (beside the nonlinear-rollout "
+          f"solve), {w['rollouts']} line-search rollouts over {max(w['iters'])} iterations "
+          f"({w['rollouts'] / max(max(w['iters']), 1):.2f} per iteration), one rollout "
+          f"{w['kernels'] or 'not measured'} device kernels (busy {w['busy_ms']:.1f} ms), traj "
+          f"cost max rel gap to walk_phase's fused ProxDDP {gap:.3e}")
+    check(w["finite"], "walk FDDP iterates finite")
+    check(all(w["conv"]), "every walk scenario converges under FDDP")
+
+    # (4) the pendulum cases on the card against the CPU (float64)
+    t0 = time.perf_counter()
+    check(pipes["pendulum"].poll(900), "the pendulum solves of the child process finished")
+    cpu, card = pipes["pendulum"].recv()
+    print(f"solvers: pendulum results waited for {time.perf_counter() - t0:.1f} s")
+    for name, (xs, us, conv, n_it, secs) in card.items():
+        xs_c, us_c, conv_c, n_it_c, secs_c = cpu[name]
+        ex = float(np.abs(xs - xs_c).max()) / max(1.0, float(np.abs(xs_c).max()))
+        eu = float(np.abs(us - us_c).max()) / max(1.0, float(np.abs(us_c).max()))
+        print(f"solvers: pendulum {name}: card conv {conv}, iterations {n_it}, {secs:.1f} s; "
+              f"CPU conv {conv_c}, iterations {n_it_c}, {secs_c:.1f} s; max|dxs| {ex:.3e}, "
+              f"max|dus| {eu:.3e} (relative to max(1, max|.|))")
+        check(conv and conv_c, f"pendulum {name} converges on the card and the CPU")
+        check(ex <= 1e-9 and eu <= 1e-9, f"pendulum {name} card vs CPU to 1e-9")
 
 
 def main() -> int:
@@ -998,11 +1270,20 @@ def main() -> int:
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     print_ptxas(logs)
 
+    t_run = time.perf_counter()
     kernels = kernels_phase(dev) + k1_walk_check(dev) + probe_phase(dev)
+    print(f"kernel and probe phases: {time.perf_counter() - t_run:.1f} s")
+    t0 = time.perf_counter()
     launches = slice_phase(dev)
+    print(f"slice phase: {time.perf_counter() - t0:.1f} s")
     lq_phase(dev)
+    t0 = time.perf_counter()
     mpc_phase(dev)
-    launches.update(walk_phase(dev))
+    print(f"mpc phase: {time.perf_counter() - t0:.1f} s")
+    walk_launches, walk_cost = walk_phase(dev)
+    launches.update(walk_launches)
+    solvers_phase(dev, walk_cost)
+    print(f"all phases: {time.perf_counter() - t_run:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
     print(json.dumps({"kernels": kernels}))

@@ -70,7 +70,10 @@ def test_schur_kkt_matches_jax(m):
 def test_schur_flags_indefinite_R_with_nan():
     R = torch.tensor([[[1.0, 2.0], [2.0, 1.0]]], dtype=torch.float64)
     fac = TS.kkt_factor(R, torch.zeros((1, 0, 2), dtype=torch.float64), 1e-3)
-    assert torch.isnan(fac.chol_R).all()
+    assert torch.isnan(fac.chol_R[0][tuple(np.tril_indices(2))]).all()
+    # JAX's factor: NaN on and below the diagonal, zero above
+    ref = JS.kkt_factor(jnp.asarray(R[0].numpy()), jnp.zeros((0, 2), jnp.float64), 1e-3)
+    np.testing.assert_array_equal(fac.chol_R[0].numpy(), np.asarray(ref.chol_R))
 
 
 @pytest.mark.parametrize("nc", [0, 2])
