@@ -1,9 +1,9 @@
-"""Constraint sets (port of part of ``aligator_tpu.constraints``).
+"""Constraint sets (port of ``aligator_tpu.constraints``).
 
 Sets are stateless frozen dataclasses with elementwise torch methods on
 the trailing axis; the prox parameter µ is an explicit argument. The
 active set is a float mask (1.0 = active), so Jacobian masking is a
-broadcast multiply. ``L1Penalty`` waits in ROADMAP queue A.
+broadcast multiply.
 """
 
 from __future__ import annotations
@@ -92,6 +92,23 @@ class BoxConstraint(ConstraintSet):
     def active_set(self, z, mu):
         lo, hi = self._bounds(z)
         return ((z > hi) | (z < lo)).to(z.dtype)
+
+
+@dataclasses.dataclass(frozen=True)
+class L1Penalty(ConstraintSet):
+    """The composite penalty λ‖r‖₁ through its soft-thresholding prox;
+    ``scale`` is the weight λ: prox_{µλ|·|}(z) = sign(z)·max(|z| − µλ, 0)."""
+
+    scale: float = 1.0
+
+    def evaluate(self, zproj):
+        return self.scale * zproj.abs().sum(-1)
+
+    def projection(self, z, mu):
+        return torch.sign(z) * torch.clamp(z.abs() - mu * self.scale, min=0.0)
+
+    def active_set(self, z, mu):
+        return (z.abs() <= mu * self.scale).to(z.dtype)
 
 
 @dataclasses.dataclass(frozen=True)

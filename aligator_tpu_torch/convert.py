@@ -19,7 +19,7 @@ from aligator_tpu_torch.manifolds.vector import VectorSpace
 from aligator_tpu_torch.multibody.model import FrameSpec, JointSpec, MultibodyModel
 from aligator_tpu_torch.problem import TrajOptProblem, build_problem
 from aligator_tpu_torch.utils.device import resolve_device
-from aligator_tpu_torch.utils.tree import tree_map
+from aligator_tpu_torch.utils.tree import shared
 
 _LQR_FIELDS = ("Q", "S", "R", "q", "r", "A", "B", "f", "C", "D", "d",
                "Gx", "Gu", "Gth", "gamma", "G0", "g0", "Gv")
@@ -55,7 +55,6 @@ def problem_from_numpy(A, B, c, Q, R, Qf, x0, N: int, lower=None, upper=None,
     other arrays are shared by the batch."""
     device = resolve_device(device)
     t = lambda a: torch.as_tensor(np.array(a), device=device)
-    shared = lambda obj: tree_map(lambda a: a.unsqueeze(0), obj)
     A, B, c = t(A), t(B), t(c)
     dyn = LinearDiscreteDynamics(A=A, B=B, c=c)
     if A.dim() == 2:

@@ -1,7 +1,6 @@
-"""Cost library (port of part of ``aligator_tpu.costs``: ``Cost``,
-``QuadraticCost``, ``QuadraticResidualCost`` with its state and control
-forms, and ``CostStack``; the constant, log-barrier and direct-sum costs
-wait in ROADMAP queue A).
+"""Cost library (port of ``aligator_tpu.costs``): quadratic costs,
+residual (Gauss-Newton) costs with their state and control forms,
+constants, log barriers, direct sums and weighted stacks.
 
 Costs are dataclasses whose tensor fields are weights (stackable over the
 horizon). Gradients and Hessians are taken w.r.t. tangent perturbations:
@@ -18,6 +17,8 @@ import torch
 from torch.func import grad, hessian
 
 from aligator_tpu_torch.manifolds.base import Manifold
+from aligator_tpu_torch.manifolds.product import block_diag
+from aligator_tpu_torch.utils.tree import static_field
 
 
 @dataclasses.dataclass(frozen=True)
@@ -133,6 +134,88 @@ def QuadraticControlCost(target, W) -> QuadraticResidualCost:
 
     return QuadraticResidualCost(residual=ControlErrorResidual(target=torch.as_tensor(target)),
                                  W=torch.as_tensor(W))
+
+
+@dataclasses.dataclass(frozen=True)
+class ConstantCost(Cost):
+    """A fixed value; zero gradients and Hessians."""
+
+    const: torch.Tensor
+
+    def value(self, space, x, u):
+        return self.const
+
+    def gradients(self, space, x, u):
+        return x.new_zeros(space.ndx), x.new_zeros(u.shape[-1])
+
+    def hessians(self, space, x, u):
+        ndx, nu = space.ndx, u.shape[-1]
+        return x.new_zeros((ndx, ndx)), x.new_zeros((ndx, nu)), x.new_zeros((nu, nu))
+
+
+@dataclasses.dataclass(frozen=True)
+class LogResidualCost(Cost):
+    """−Σ wᵢ log rᵢ(x, u); derivatives by the base class's AD."""
+
+    residual: Any
+    weights: torch.Tensor
+
+    def value(self, space, x, u):
+        return -(self.weights * torch.log(self.residual.value(x, u))).sum(-1)
+
+
+@dataclasses.dataclass(frozen=True)
+class RelaxedLogBarrierCost(Cost):
+    """Relaxed log barrier: −w log r for r ≥ δ, and below the threshold δ
+    the quadratic extension w(½(((r − 2δ)/δ)² − 1) − log δ)."""
+
+    residual: Any
+    weights: torch.Tensor
+    threshold: torch.Tensor
+
+    def value(self, space, x, u):
+        r = self.residual.value(x, u)
+        d = self.threshold
+        sq = (r - 2.0 * d) / d
+        below = self.weights * (0.5 * (sq * sq - 1.0) - torch.log(d))
+        above = -self.weights * torch.log(torch.maximum(r, d))
+        return torch.where(r < d, below, above).sum(-1)
+
+
+def jsl_block_diag(a, b):
+    """The block-diagonal matrix [[a, 0], [0, b]] of two 2-D blocks."""
+    return block_diag(a, b)
+
+
+@dataclasses.dataclass(frozen=True)
+class DirectSumCost(Cost):
+    """ℓ₁(x₁, u₁) + ℓ₂(x₂, u₂) on a two-factor ``CartesianProduct`` state;
+    the control splits at ``nu1``."""
+
+    c1: Any
+    c2: Any
+    nu1: int = static_field(default=0)
+
+    def _split(self, space, x, u):
+        s1, s2 = space.components
+        return (s1, x[..., :s1.nx], u[..., :self.nu1],
+                s2, x[..., s1.nx:], u[..., self.nu1:])
+
+    def value(self, space, x, u):
+        s1, x1, u1, s2, x2, u2 = self._split(space, x, u)
+        return self.c1.value(s1, x1, u1) + self.c2.value(s2, x2, u2)
+
+    def gradients(self, space, x, u):
+        s1, x1, u1, s2, x2, u2 = self._split(space, x, u)
+        g1x, g1u = self.c1.gradients(s1, x1, u1)
+        g2x, g2u = self.c2.gradients(s2, x2, u2)
+        return torch.cat([g1x, g2x], dim=-1), torch.cat([g1u, g2u], dim=-1)
+
+    def hessians(self, space, x, u):
+        s1, x1, u1, s2, x2, u2 = self._split(space, x, u)
+        H1 = self.c1.hessians(s1, x1, u1)
+        H2 = self.c2.hessians(s2, x2, u2)
+        return tuple(jsl_block_diag(a, b) for a, b in zip(H1, H2))
 
 
 @dataclasses.dataclass(frozen=True)

@@ -27,7 +27,7 @@ from aligator_tpu_torch.functions.custom import CustomODE
 from aligator_tpu_torch.manifolds.vector import VectorSpace
 from aligator_tpu_torch.problem import TrajOptProblem, build_problem
 from aligator_tpu_torch.utils.device import resolve_device
-from aligator_tpu_torch.utils.tree import tree_map
+from aligator_tpu_torch.utils.tree import shared
 
 
 def _xdot(space, x, u):
@@ -52,7 +52,6 @@ def create_pendulum_problem(nsteps: int = 60, dt: float = 0.05, u_max: float = 6
         (QuadraticControlCost(t(np.zeros(1)), u_weight * t(np.eye(1))), 1.0),
     )
     tcost = QuadraticStateCost(space, target, 100.0 * t(np.eye(2)))
-    shared = lambda obj: tree_map(lambda a: a.unsqueeze(0), obj)
     cstrs = () if u_max is None else (
         (shared(ControlErrorResidual(target=t(np.zeros(1)))),
          BoxConstraint(lower=(-u_max,), upper=(u_max,)), 1),)

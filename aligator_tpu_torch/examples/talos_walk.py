@@ -45,7 +45,7 @@ from aligator_tpu_torch.multibody.spaces import MultibodyPhaseSpace
 from aligator_tpu_torch.multibody.urdf import load_talos_like
 from aligator_tpu_torch.problem import TrajOptProblem, build_problem
 from aligator_tpu_torch.utils.device import resolve_device
-from aligator_tpu_torch.utils.tree import tree_map
+from aligator_tpu_torch.utils.tree import shared
 
 SWING_APEX = 0.05  # m
 
@@ -118,7 +118,6 @@ def create_walk_problem(T_ss: int = 20, T_ds: int = 10, dt: float = 0.01,
         (QuadraticResidualCost(residual=swing[1], W=1e4 * eye(6)), 0.0),
     )
     term_cost = QuadraticStateCost(space, x0, w_x)
-    shared = lambda obj: tree_map(lambda a: a.unsqueeze(0), obj)
     problem = build_problem(space, nu, N, x0, shared(dyn), shared(rcost), shared(term_cost),
                             device=device, dtype=dtype)
     return stamp_schedule(problem, (lf, rf, wl, wr, dz), LF0.p, RF0.p), model

@@ -1,6 +1,7 @@
 """Rigid-body algorithms (port of ``aligator_tpu.multibody.algorithms``):
-forward kinematics, frame placements and velocities, RNEA, CRBA, ABA and
-forward dynamics.
+forward kinematics, frame placements, velocities and Jacobians, RNEA and
+its nonlinear-effect and gravity forms, CRBA, ABA, forward dynamics, the
+centre of mass and the centroidal momentum.
 
 The tree sweeps are Python loops over the static topology, one joint at
 a time, as in the JAX package, each step one 6×6 product; what does not
@@ -28,9 +29,10 @@ import functools
 from typing import List, NamedTuple, Optional, Tuple
 
 import torch
+from torch.func import jacfwd, vmap
 
-from aligator_tpu_torch.linalg.spd import spd_factor, spd_solve_factored
-from aligator_tpu_torch.manifolds.lie import skew
+from aligator_tpu_torch.linalg.spd import spd_factor, spd_solve, spd_solve_factored
+from aligator_tpu_torch.manifolds.lie import cross, skew
 from aligator_tpu_torch.multibody.model import (
     MultibodyModel,
     joint_motions,
@@ -46,16 +48,11 @@ from aligator_tpu_torch.multibody.spatial import (
     motion_cross_force,
     se3_act_force,
     se3_act_inv_motion,
+    se3_act_motion,
     se3_mul,
 )
 from aligator_tpu_torch.utils.profiling import named_scope
-from aligator_tpu_torch.utils.tree import tree_map
-
-
-def detached(tree):
-    """``tree`` with every tensor leaf detached: no tangent flows through
-    it under forward-mode AD."""
-    return tree_map(lambda a: a.detach(), tree)
+from aligator_tpu_torch.utils.tree import detached
 
 
 class Kinematics(NamedTuple):
@@ -299,10 +296,90 @@ def _fd_implicit(model: MultibodyModel, q, v, tau) -> torch.Tensor:
     return a0 - spd_solve_factored(fac, rnea(model, q, v, a0) - tau, refine_steps=1)
 
 
-def fwd_dynamics(model: MultibodyModel, q, v, tau):
+def fwd_dynamics(model: MultibodyModel, q, v, tau, f_ext: Optional[list] = None):
     """Forward dynamics a = M(q)⁻¹ (τ − b(q, v)) by an equilibrated
     Cholesky solve. Its derivatives follow the implicit-function rule (one
     RNEA tangent per direction) rather than differentiating the
-    mass-matrix assembly. (The JAX function's ``f_ext`` option waits with
-    the residuals that would use it.)"""
-    return _fd_implicit(model, q, v, tau)
+    mass-matrix assembly. With ``f_ext`` (per-joint external forces in the
+    joints' LOCAL frames, as :func:`rnea` takes them) the solve is plain,
+    its derivatives AD through CRBA and the solve, as in the JAX package."""
+    if f_ext is None:
+        return _fd_implicit(model, q, v, tau)
+    b = rnea(model, q, v, torch.zeros_like(v), f_ext=f_ext)
+    return spd_solve(mass_matrix(model, q), tau - b, refine_steps=1)
+
+
+def nonlinear_effects(model: MultibodyModel, q, v):
+    """Coriolis and gravity torque b(q, v) = RNEA(q, v, 0)."""
+    return rnea(model, q, v, torch.zeros_like(v))
+
+
+def gravity_torque(model: MultibodyModel, q):
+    z = q.new_zeros(model.nv)
+    return rnea(model, q, z, z)
+
+
+def mass_matrix(model: MultibodyModel, q) -> torch.Tensor:
+    """M(q) by CRBA."""
+    return crba(model, q)
+
+
+def mass_matrix_rnea(model: MultibodyModel, q) -> torch.Tensor:
+    """M(q) from unit-acceleration RNEA columns RNEA(q, 0, eⱼ) − RNEA(q, 0,
+    0), mapped over the columns: an oracle for :func:`crba` (a difference
+    of gravity-sized terms, so not for float32 compute)."""
+    nv = model.nv
+    accs = torch.cat([q.new_zeros(1, nv), torch.eye(nv, dtype=q.dtype, device=q.device)])
+    out = vmap(lambda vv, aa: rnea(model, q, vv, aa))(q.new_zeros(nv + 1, nv), accs)
+    M = (out[1:] - out[0]).mT
+    return 0.5 * (M + M.mT)
+
+
+def _world_coms(model: MultibodyModel, oM: List[SE3T]) -> torch.Tensor:
+    """Every body's CoM in the world frame, (nj, 3)."""
+    oR = torch.stack([M.R for M in oM])
+    op = torch.stack([M.p for M in oM])
+    return op + (oR @ model.com[..., None])[..., 0]
+
+
+def _com(model: MultibodyModel, oM: List[SE3T]) -> torch.Tensor:
+    return (model.mass[:, None] * _world_coms(model, oM)).sum(0) / model.mass.sum()
+
+
+def com_position(model: MultibodyModel, q) -> torch.Tensor:
+    """The robot's centre of mass in the world frame."""
+    return _com(model, forward_kinematics(model, q))
+
+
+def centroidal_momentum(model: MultibodyModel, q, v):
+    """(h, com): the centroidal momentum h = (h_lin, h_ang) about the CoM in
+    world-aligned axes, and the CoM. The momentum matrix Ag is ∂h/∂v
+    (``jacfwd``)."""
+    K = kinematics(model, q)
+    oM = forward_kinematics(model, q, K)
+    V = torch.stack(joint_velocities(model, K, v))
+    I_all = Inertia(model.mass, model.com, model.inertia).matrix()
+    oMs = SE3T(torch.stack([M.R for M in oM]), torch.stack([M.p for M in oM]))
+    h_o = se3_act_force(oMs, inertia_mul(I_all, V)).sum(0)
+    com = _com(model, oM)
+    h_lin = h_o[:3]
+    return torch.cat([h_lin, h_o[3:] - cross(com, h_lin)]), com
+
+
+def frame_velocity(model: MultibodyModel, q, v, fid: int, local: bool = True):
+    """Spatial velocity of frame ``fid``, in its own frame (LOCAL) or in
+    the world frame (WORLD)."""
+    vels = joint_velocities(model, kinematics(model, q), v)
+    f = model.frames[fid]
+    v_f = se3_act_inv_motion(SE3T(model.frame_R[fid], model.frame_p[fid]),
+                             vels[f.parent_joint])
+    if local:
+        return v_f
+    return se3_act_motion(frame_placement(model, q, fid), v_f)
+
+
+def frame_jacobian_local(model: MultibodyModel, q, fid: int) -> torch.Tensor:
+    """LOCAL frame Jacobian (6, nv): J v is the frame's spatial velocity in
+    its own frame, by forward-mode AD of the velocity map."""
+    return jacfwd(lambda vv: frame_velocity(model, q, vv, fid, local=True))(
+        q.new_zeros(model.nv))

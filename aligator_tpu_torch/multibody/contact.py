@@ -30,7 +30,6 @@ from torch.func import jvp
 from aligator_tpu_torch.linalg.spd import spd_factor, spd_solve_factored
 from aligator_tpu_torch.multibody.algorithms import (
     Kinematics,
-    detached,
     fwd_dynamics,
     frame_placement,
     joint_velocities,
@@ -45,7 +44,7 @@ from aligator_tpu_torch.multibody.spatial import (
     se3_act_inv_motion,
     so3_log,
 )
-from aligator_tpu_torch.utils.tree import static_field
+from aligator_tpu_torch.utils.tree import detached, static_field
 
 
 @dataclasses.dataclass(frozen=True)

@@ -238,6 +238,41 @@ def _box_inertia(m, lx, ly, lz):
     return m / 12.0 * np.diag([ly ** 2 + lz ** 2, lx ** 2 + lz ** 2, lx ** 2 + ly ** 2])
 
 
+def build_serial_chain(n_links: int = 6, link_length: float = 0.3, link_mass: float = 1.5,
+                       axes: Optional[list] = None, free_flyer: bool = False,
+                       dtype=torch.float64, device=None) -> MultibodyModel:
+    """A serial manipulator: ``n_links`` revolute joints about ``axes``
+    (cycled; by default the UR5-like z, y, y, y, z, y), a tool frame
+    ``tool0`` at the tip; with ``free_flyer`` the chain rides on a
+    floating 8 kg box (``n_links=0, free_flyer=True`` is a bare rigid
+    body, the quadrotor's airframe). The same model as the JAX package's
+    ``build_serial_chain``, on ``device`` (default: the card; raises
+    without one)."""
+    if axes is None:
+        axes = [(0, 0, 1), (0, 1, 0), (0, 1, 0), (0, 1, 0), (0, 0, 1), (0, 1, 0)]
+    joints, parents, jp, mass, com, inert = [], [], [], [], [], []
+    if free_flyer:
+        joints.append(JointSpec("freeflyer"))
+        parents.append(-1)
+        jp.append(np.zeros(3))
+        mass.append(8.0)
+        com.append(np.zeros(3))
+        inert.append(_box_inertia(8.0, 0.3, 0.3, 0.3))
+    start = len(joints)
+    for k in range(n_links):
+        joints.append(JointSpec("revolute", tuple(axes[k % len(axes)])))
+        parents.append(start + k - 1 if k > 0 else (0 if free_flyer else -1))
+        jp.append(np.array([0.0, 0.0, link_length if k > 0 else 0.1]))
+        mass.append(link_mass)
+        com.append(np.array([0.0, 0.0, link_length / 2]))
+        inert.append(_box_inertia(link_mass, 0.05, 0.05, link_length))
+    return MultibodyModel.create(
+        np.stack([np.eye(3)] * len(joints)), np.stack(jp), np.asarray(mass), np.stack(com),
+        np.stack(inert), np.eye(3)[None], np.array([[0.0, 0.0, link_length]]),
+        np.array([0.0, 0.0, -9.81]), joints, parents, (FrameSpec("tool0", len(joints) - 1),),
+        dtype=dtype, device=device)
+
+
 def build_humanoid(dtype=torch.float64, device=None) -> MultibodyModel:
     """Talos-dimension humanoid: a free flyer and 22 actuated joints (legs
     2×6, torso 2, arms 2×4), so nq = 29, nv = 28, nu = 22, in the

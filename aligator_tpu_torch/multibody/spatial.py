@@ -40,6 +40,12 @@ def se3_inv(a: SE3T) -> SE3T:
     return SE3T(Rt, -_mv(Rt, a.p))
 
 
+def se3_act_motion(X: SE3T, m):
+    """A motion (v, w) from X's local frame to its target frame."""
+    Rv, Rw = _mv(X.R, m[..., :3]), _mv(X.R, m[..., 3:])
+    return torch.cat([Rv + cross(X.p, Rw), Rw], dim=-1)
+
+
 def se3_act_inv_motion(X: SE3T, m):
     """A motion from the target frame to X's local frame."""
     v, w = m[..., :3], m[..., 3:]

@@ -1,5 +1,5 @@
-"""URDF importer: a URDF robot description as a MultibodyModel (port of
-``aligator_tpu.multibody.urdf``; ``load_urdf`` and ``load_talos_like``).
+"""URDF import and export: a URDF robot description as a MultibodyModel
+and back (port of ``aligator_tpu.multibody.urdf``).
 
 Conventions as in Pinocchio and the JAX package: every movable URDF joint
 (revolute, continuous, prismatic, floating) becomes a model joint whose
@@ -203,8 +203,74 @@ def load_urdf(urdf: str, free_flyer: bool = False, dtype=torch.float64, device=N
         dtype=dtype, device=device)
 
 
-# examples/assets/talos_like.urdf at the root of the checkout
-TALOS_LIKE_URDF = Path(__file__).resolve().parents[2] / "examples" / "assets" / "talos_like.urdf"
+def _rpy_of(R: np.ndarray) -> np.ndarray:
+    """ZYX Euler angles of a rotation: the inverse of :func:`_rpy_matrix`."""
+    sy = -R[2, 0]
+    cy = np.sqrt(max(R[0, 0] ** 2 + R[1, 0] ** 2, 1e-300))
+    return np.array([np.arctan2(R[2, 1], R[2, 2]), np.arctan2(sy, cy),
+                     np.arctan2(R[1, 0], R[0, 0])])
+
+
+def model_to_urdf(model: MultibodyModel, name: str = "robot") -> str:
+    """A :class:`MultibodyModel` as a URDF document, the loader's inverse:
+    ``load_urdf(model_to_urdf(m))`` reproduces m's kinematics and
+    inertias. Each joint becomes a revolute, prismatic or floating URDF
+    joint whose child link carries its body's inertia (joint frame = link
+    frame, CoM offset and inertia about the CoM in the joint's axes, as
+    URDF's inertial element has them); each model frame becomes a fixed
+    massless child link, so frame names survive the round trip. The
+    document is the JAX package's ``model_to_urdf`` text for the same
+    model."""
+    host = lambda a: a.detach().cpu().double().numpy()
+    mass, com, inert = host(model.mass), host(model.com), host(model.inertia)
+    jR, jp, fR, fp = (host(model.jplace_R), host(model.jplace_p), host(model.frame_R),
+                      host(model.frame_p))
+    fmt = lambda v: " ".join(repr(float(x)) for x in np.atleast_1d(v))
+    link_name = lambda i: f"link_{i}"
+    out = [f'<robot name="{name}">', '  <link name="world_root"/>']
+    for i, spec in enumerate(model.joints):
+        jtype = {"freeflyer": "floating", "revolute": "revolute",
+                 "prismatic": "prismatic"}[spec.jtype]
+        parent = "world_root" if model.parents[i] < 0 else link_name(model.parents[i])
+        I = inert[i]
+        out += [
+            f'  <link name="{link_name(i)}">',
+            "    <inertial>",
+            f'      <origin xyz="{fmt(com[i])}" rpy="0 0 0"/>',
+            f'      <mass value="{repr(float(mass[i]))}"/>',
+            f'      <inertia ixx="{repr(float(I[0, 0]))}" ixy="{repr(float(I[0, 1]))}" '
+            f'ixz="{repr(float(I[0, 2]))}" iyy="{repr(float(I[1, 1]))}" '
+            f'iyz="{repr(float(I[1, 2]))}" izz="{repr(float(I[2, 2]))}"/>',
+            "    </inertial>",
+            "  </link>",
+            f'  <joint name="joint_{i}" type="{jtype}">',
+            f'    <origin xyz="{fmt(jp[i])}" rpy="{fmt(_rpy_of(jR[i]))}"/>',
+            f'    <parent link="{parent}"/>',
+            f'    <child link="{link_name(i)}"/>',
+        ]
+        if spec.jtype == "revolute":
+            out += [f'    <axis xyz="{fmt(np.asarray(spec.axis, float))}"/>',
+                    '    <limit lower="-3.14159" upper="3.14159" effort="1000" '
+                    'velocity="100"/>']
+        elif spec.jtype == "prismatic":
+            out += [f'    <axis xyz="{fmt(np.asarray(spec.axis, float))}"/>',
+                    '    <limit lower="-10" upper="10" effort="1000" velocity="100"/>']
+        out.append("  </joint>")
+    for k, fr in enumerate(model.frames):
+        out += [f'  <link name="{fr.name}"/>',
+                f'  <joint name="frame_{fr.name}" type="fixed">',
+                f'    <origin xyz="{fmt(fp[k])}" rpy="{fmt(_rpy_of(fR[k]))}"/>',
+                f'    <parent link="{link_name(fr.parent_joint)}"/>',
+                f'    <child link="{fr.name}"/>',
+                "  </joint>"]
+    out.append("</robot>")
+    return "\n".join(out)
+
+
+# the repository's robot assets, under examples/assets at the root of the checkout
+ASSETS = Path(__file__).resolve().parents[2] / "examples" / "assets"
+TALOS_LIKE_URDF = ASSETS / "talos_like.urdf"
+UR5_URDF = ASSETS / "ur5.urdf"
 
 
 def load_talos_like(dtype=torch.float64, device=None) -> MultibodyModel:
@@ -219,3 +285,9 @@ def load_talos_like(dtype=torch.float64, device=None) -> MultibodyModel:
     if TALOS_LIKE_URDF.exists():
         return load_urdf(str(TALOS_LIKE_URDF), dtype=dtype, device=device)
     return build_humanoid(dtype, device)
+
+
+def load_ur5(dtype=torch.float64, device=None) -> MultibodyModel:
+    """The UR5 of the repository's ``examples/assets/ur5.urdf``: nq = nv = 6,
+    the tool frame ``ee_link``."""
+    return load_urdf(str(UR5_URDF), dtype=dtype, device=device)

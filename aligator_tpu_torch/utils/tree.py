@@ -66,6 +66,18 @@ def tree_unflatten(template: Any, leaves) -> Any:
     return tree_map(lambda _: next(it), template)
 
 
+def shared(tree: Any) -> Any:
+    """``tree`` with a leading batch axis of 1 on every tensor leaf: one
+    object shared by every element of a batch (see ``problem``)."""
+    return tree_map(lambda a: a.unsqueeze(0), tree)
+
+
+def detached(tree: Any) -> Any:
+    """``tree`` with every tensor leaf detached: no tangent flows through
+    it under forward-mode AD."""
+    return tree_map(lambda a: a.detach(), tree)
+
+
 def tree_where(mask: torch.Tensor, new: Any, old: Any) -> Any:
     """Per-batch-element select: every leaf carries the batch as its
     leading axis, ``mask`` is (B,) bool. The port's counterpart of the

@@ -24,8 +24,16 @@ solve on the card) and its MPC cycle at B = 1; then the solvers of slice
 walk's 16 scenarios by FDDP in float64 and by fused ProxDDP with the
 nonlinear rollout through K1's gains, and the pendulum example's FDDP,
 filter + nonlinear + box and exact-Hessian solves on the card against the
-CPU (both in a child process beside the walk's solves). It checks the results and
-prints one JSON line of kernel reports and a final status line. Any
+CPU (both in a child process beside the walk's solves); then the examples
+of slice 5: the quadrotor (an SE(3) free flyer past a convex mug and a
+box pillar, N = 60) as 16 perturbed scenarios in float32 through K1's
+instantiation for widths read at launch and K2 (nx = 12, nu = 4, nc = 6),
+against the serial path, a float64 solve and its physical outcomes, and
+the seven other examples (the LQR, the SE(2) car, the cartpole, the
+acrobot, the UR5 reach, obstacle and ballistic throw) in float64 on the
+card against the CPU (child processes beside the solvers phase). It
+checks the results and prints one JSON line of kernel reports and a
+final status line. Any
 failed check raises, and the script exits non-zero (the one exception,
 K1 at the bench widths and µ = 1e-6, where the JAX Pallas kernel fails
 too, is printed with its verdict; see ``K1_REFERENCE_BEHAVIOUR``);
@@ -46,6 +54,7 @@ import numpy as np
 import torch
 
 from aligator_tpu_torch.convert import lqr_from_numpy, problem_from_numpy
+from aligator_tpu_torch.examples import quadrotor_obstacles as TQ
 from aligator_tpu_torch.examples import talos_walk as TW
 from aligator_tpu_torch.examples.pendulum import create_pendulum_problem
 from aligator_tpu_torch.gar import assoc as GA
@@ -829,13 +838,13 @@ WALK_SETTINGS = dict(tol=1e-4, dual_tol=1e-4, mu_init=1e-8, max_iters=40, riccat
 WALK_MPC_SETTLE, WALK_MPC_STEPS = 3, 5
 
 
-def walk_scenarios(problem, model):
+def walk_scenarios(problem, model, batch: int = WALK_BATCH):
     """The walk's 16 scenarios: x0 with the joint velocities perturbed by
-    0.01·N(0, 1) from default_rng(7) (bench.py:335-340)."""
-    dv = 0.01 * np.random.default_rng(7).standard_normal((WALK_BATCH, model.nv)).astype(
-        np.float32)
+    0.01·N(0, 1) from default_rng(7) (bench.py:335-340); the first
+    ``batch`` of them for another batch size."""
+    dv = 0.01 * np.random.default_rng(7).standard_normal((batch, model.nv)).astype(np.float32)
     x0 = problem.x0.cpu().numpy()
-    x0s = np.concatenate([np.tile(x0[:model.nq], (WALK_BATCH, 1)), x0[model.nq:] + dv], axis=1)
+    x0s = np.concatenate([np.tile(x0[:model.nq], (batch, 1)), x0[model.nq:] + dv], axis=1)
     return problem.replace_x0(torch.as_tensor(x0s, dtype=problem.x0.dtype,
                                               device=problem.x0.device))
 
@@ -1092,6 +1101,27 @@ def _pendulum_child(conn) -> None:
 
 
 @contextlib.contextmanager
+def spawned(targets: dict):
+    """Start ``target(conn, *args)`` of each entry name → (target, args) in
+    a spawned child process; yields name → the receiving end of its pipe,
+    and stops every child on the way out."""
+    ctx = multiprocessing.get_context("spawn")
+    children, pipes = [], {}
+    try:
+        for name, (target, args) in targets.items():
+            recv, send = ctx.Pipe(duplex=False)
+            children.append(ctx.Process(target=target, args=(send, *args), daemon=True))
+            children[-1].start()
+            pipes[name] = recv
+        yield pipes
+    finally:
+        for child in children:
+            if child.is_alive():
+                child.terminate()
+            child.join()
+
+
+@contextlib.contextmanager
 def counting_calls(module, name: str):
     """Count the calls of ``module.name`` (looked up at call time) while
     the block runs; yields a one-element list holding the count."""
@@ -1106,6 +1136,40 @@ def counting_calls(module, name: str):
         yield box
     finally:
         setattr(module, name, orig)
+
+
+@contextlib.contextmanager
+def kernels_held_to_plain(log: list):
+    """While the block runs, every K1 and K2 launch through the fused
+    wrappers is followed by the plain version on the same inputs (not
+    counted as a launch); ``log`` gets one (kernel, max over outputs of
+    max|Δ| / max(1, max|plain|)) per call. The launch counts carry over
+    to the wrappers."""
+    orig_b, orig_f = FR.backward_sweep_batched, FR.forward_sweep_batched
+
+    def rel(pairs):
+        return max(max_err(a, b) / max(1.0, float(b.abs().max()) if b.numel() else 0.0)
+                   for a, b in pairs)
+
+    def held_b(knots, mu, refine_steps=1):
+        g, v = orig_b(knots, mu, refine_steps)
+        gp, vp = FR.backward_sweep_batched_ref(knots, mu, refine_steps)
+        log.append(("K1", rel([(getattr(g, n), getattr(gp, n)) for n in g._fields]
+                              + [(getattr(v, n), getattr(vp, n)) for n in v._fields])))
+        return g, v
+
+    def held_f(gains, vms, x0, lbd0):
+        out = orig_f(gains, vms, x0, lbd0)
+        log.append(("K2", rel(zip(out, FR.forward_sweep_batched_ref(gains, vms, x0, lbd0)))))
+        return out
+
+    held_b.launches, held_f.launches = orig_b.launches, orig_f.launches
+    FR.backward_sweep_batched, FR.forward_sweep_batched = held_b, held_f
+    try:
+        yield log
+    finally:
+        orig_b.launches, orig_f.launches = held_b.launches, held_f.launches
+        FR.backward_sweep_batched, FR.forward_sweep_batched = orig_b, orig_f
 
 
 def median_rate(fn, batch: int) -> list:
@@ -1135,20 +1199,9 @@ def solvers_phase(dev, walk_cost) -> None:
     contended, those of runs side by side."""
     t_phase = time.perf_counter()
     lqr56_chain(dev)
-    ctx = multiprocessing.get_context("spawn")
-    children, pipes = [], {}
-    try:
-        for name, target in (("walk fddp", _walk_fddp_child), ("pendulum", _pendulum_child)):
-            recv, send = ctx.Pipe(duplex=False)
-            children.append(ctx.Process(target=target, args=(send,), daemon=True))
-            children[-1].start()
-            pipes[name] = recv
+    with spawned({"walk fddp": (_walk_fddp_child, ()),
+                  "pendulum": (_pendulum_child, ())}) as pipes:
         _solvers_phase(dev, walk_cost, pipes)
-    finally:
-        for child in children:
-            if child.is_alive():
-                child.terminate()
-            child.join()
     print(f"solvers phase: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1255,6 +1308,285 @@ def _solvers_phase(dev, walk_cost, pipes) -> None:
         check(ex <= 1e-9 and eu <= 1e-9, f"pendulum {name} card vs CPU to 1e-9")
 
 
+# Slice 5: the manipulator, free-flyer and small-robot examples. (a) The
+# quadrotor (examples/quadrotor_obstacles.py: N = 60, dt = 0.05, the mug,
+# the pillar and the hover box on u; ndx = 12, nu = 4, nc = 6) as a batch
+# of 16 perturbed scenarios in float32 through the fused kernels; (b) the
+# other seven examples at their published sizes with the JAX examples'
+# settings, float64, each on the card and on the CPU (child processes).
+QUAD_BATCH = 16
+QUAD_SETTINGS = dict(tol=1e-3, mu_init=1e-2, max_iters=200)
+EXAMPLES = {  # name → (create_* keywords, ProxDDPSettings of the example's main)
+    "lqr": (dict(bounds=True), dict(tol=1e-8, mu_init=2e-3, max_iters=20)),
+    "se2_car": (dict(nsteps=40), dict(tol=1e-6, mu_init=1e-2, max_iters=100)),
+    "cartpole": ({}, dict(tol=1e-3, mu_init=1e-2, max_iters=300)),
+    "acrobot": (dict(term_cstr=True), dict(tol=1e-3, mu_init=1e-2, max_iters=200)),
+    "ur5_reach": ({}, dict(tol=1e-4, mu_init=1e-2, max_iters=100)),
+    "ur5_obstacle": ({}, dict(tol=1e-4, mu_init=1e-2, max_iters=120)),
+    "ur5_ballistic": ({}, dict(tol=1e-4, mu_init=1e-2, max_iters=200)),
+}
+
+
+# card vs CPU: 1e-9·max(1, max|·|), but the acrobot's 200 iterations
+# amplify rounding to ~1e-9 between any two correct solves (ROADMAP C9:
+# the port against JAX on the CPU, the card against the CPU): 1e-8 there
+EXAMPLE_TOL = {"acrobot": 1e-8}
+
+
+def example_solves(names, device) -> dict:
+    """Each named example built and solved on ``device`` in float64: name →
+    (xs, us, conv, iterations, seconds, outcomes) as numpy arrays, numbers
+    and a dict of the outcomes the JAX tests assert."""
+    import importlib
+
+    out = {}
+    for name in names:
+        mod = importlib.import_module(f"aligator_tpu_torch.examples.{name}")
+        create = next(getattr(mod, n) for n in dir(mod) if n.startswith("create_"))
+        kw, settings = EXAMPLES[name]
+        built = create(device=device, **kw)
+        problem = built[0] if isinstance(built, tuple) else built
+        t0 = time.perf_counter()
+        res = solve(problem, ProxDDPSettings(**settings))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        outcomes = {}
+        if name == "ur5_obstacle":
+            outcomes["min_clearance"] = mod.min_tool_obstacle_distance(built[1], res.xs, built[3])
+        elif name == "ur5_ballistic":
+            outcomes["landing_miss"] = mod.landing_miss(built[1], res.xs[built[2]])
+            outcomes["max_abs_u"] = float(res.us.abs().max())
+        elif name == "acrobot":
+            outcomes["norm_xN"] = float(torch.linalg.vector_norm(res.xs[-1]))
+        out[name] = (res.xs.cpu().numpy(), res.us.cpu().numpy(), bool(res.conv),
+                     int(res.num_iters), secs, outcomes)
+    return out
+
+
+def _examples_child(conn, names, device) -> None:
+    """Examples solved in a child process beside the parent's phases (each
+    side is bound by its host thread)."""
+    torch.set_num_threads(1)
+    conn.send(example_solves(names, device if device == "cpu" else torch.device(device)))
+    conn.close()
+
+
+
+
+def k_quad_check(dev):
+    """K1 (its instantiation for widths read at launch) and K2 at the
+    quadrotor's widths, B = 16, N = 60, nx = 12, nu = 4, nc = 6: against
+    their plain versions under the gate 1e-4·max|·| at µ = 1e-2 (the
+    solve's µ_init) and 1e-4, then timed beside their bounds."""
+    Bsz, N, nx, nu, nc = QUAD_BATCH, 60, 12, 4, 6
+    variant = FR.backward_variant(nx, nu, nc)
+    check(variant == "runtime", f"the quadrotor's widths take K1's runtime instantiation: {variant}")
+    lq = lqr_from_numpy(random_lq_arrays(np.random.default_rng(13), Bsz, N, nx, nu, nc),
+                        device=dev, dtype=torch.float32)
+    knots = knots_of(lq)
+    gen = torch.Generator(device=dev).manual_seed(13)
+    x0 = torch.randn(Bsz, nx, device=dev, generator=gen)
+    l0 = torch.randn(Bsz, nx, device=dev, generator=gen)
+    errs_b, errs_f = {}, {}
+    for mu_val in (1e-2, 1e-4):
+        mu = torch.full((Bsz,), mu_val, device=dev)
+        _, gp, vp, e1 = check_k1(f"quadrotor mu={mu_val:g}", knots, mu)
+        e2 = check_k2(f"quadrotor mu={mu_val:g}", gp, vp, x0, l0, "rel", set())
+        errs_b[mu_val], errs_f[mu_val] = e1, e2
+        print(f"kernels K1 quadrotor widths B={Bsz} N={N} nx={nx} nu={nu} nc={nc} "
+              f"mu={mu_val:g} ({variant}): max abs err {json.dumps(e1)}; K2 "
+              f"({'x'.join(map(str, FR.forward_plan(gp, vp)))}) max abs err {json.dumps(e2)}")
+    mu = torch.full((Bsz,), 1e-2, device=dev)
+    gp, vp = FR.backward_sweep_batched_ref(knots, mu)
+    L = N + 1
+    k1_ms = cuda_ms(lambda: FR.backward_sweep_batched(knots, mu), 20)
+    k1_plain = cuda_ms(lambda: FR.backward_sweep_batched_ref(knots, mu), 3)
+    k2_ms = cuda_ms(lambda: FR.forward_sweep_batched(gp, vp, x0, l0), 20)
+    k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
+    b1, by1 = bound_ms(*backward_cost(Bsz, L, nx, nu, nc, 1))
+    b2, by2 = bound_ms(*forward_cost(Bsz, L, nx, nu, nc))
+    print(f"quadrotor widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, bound "
+          f"{b1:.4f} ms by {by1}, {k1_ms / b1:.1f}x; {k1_ms / L * 1e3:.2f} us per knot); K2 "
+          f"{k2_ms:.4f} ms (plain {k2_plain:.3f} ms, bound {b2:.4f} ms by {by2}, "
+          f"{k2_ms / b2:.1f}x)")
+    return [
+        dict(name="riccati_backward_quadrotor", route="cuda",
+             source="aligator_tpu_torch/csrc/riccati_backward.cu",
+             replaces="aligator_tpu/gar/pallas_riccati.py:225",
+             instantiation="riccati_backward_kernel, widths read at launch",
+             path="quadrotor_obstacles",
+             max_abs_err=max(max(e.values()) for e in errs_b.values()), ms=k1_ms,
+             plain_ms=k1_plain, bound_ms=b1, bound_by=by1, library_ms=None),
+        dict(name="riccati_forward_quadrotor", route="cuda",
+             source="aligator_tpu_torch/csrc/riccati_forward.cu",
+             replaces="aligator_tpu/gar/pallas_riccati.py:549", path="quadrotor_obstacles",
+             max_abs_err=max(max(e.values()) for e in errs_f.values()), ms=k2_ms,
+             plain_ms=k2_plain, bound_ms=b2, bound_by=by2, library_ms=None),
+    ]
+
+
+def quadrotor_solves(dev, part: str) -> dict:
+    """(a) The quadrotor's 16 scenarios, as numpy arrays and numbers (it
+    runs in two child processes). ``part="fused"``: in float32 through
+    the fused kernels, K1 and K2 launches counted around that solve alone
+    and each call held to the plain versions, the scenarios' outcomes, the
+    fused solve's wall (median of 3) and one traced derivative pass;
+    ``part="reference"``: the same scenarios through the serial path in
+    float32 and in float64."""
+    full_f32_matmuls()
+    problem, model, base, geoms = TQ.create_quadrotor_problem(dtype=torch.float32, device=dev)
+    prob16 = walk_scenarios(problem, model, QUAD_BATCH)
+    fused = ProxDDPSettings(lq_solver="pallas", **QUAD_SETTINGS)
+    host = lambda r: dict(conv=r.conv.cpu().numpy(), iters=r.num_iters.cpu().numpy(),
+                          cost=r.traj_cost.double().cpu().numpy(),
+                          prim=float(r.prim_infeas.max()), dual=float(r.dual_infeas.max()),
+                          finite=bool(torch.isfinite(r.xs).all()), shape=tuple(r.xs.shape))
+    if part == "reference":
+        p64 = TQ.create_quadrotor_problem(dtype=torch.float64, device=dev)[0]
+        return dict(serial=host(solve(prob16, ProxDDPSettings(lq_solver="serial",
+                                                              **QUAD_SETTINGS))),
+                    f64=host(solve(p64.replace_x0(prob16.x0.double()),
+                                   ProxDDPSettings(lq_solver="serial", **QUAD_SETTINGS))))
+    reset_counts()
+    t0 = time.perf_counter()
+    with kernels_held_to_plain([]) as held:
+        res = solve(prob16, fused)
+        torch.cuda.synchronize()
+    out = dict(first_s=time.perf_counter() - t0, counts=read_counts(), fused=host(res),
+               held=held, N=problem.nsteps, nx=problem.space.nx, ndx=problem.ndx,
+               nu=problem.nu, nc=problem.nc)
+    # every scenario's end point and least clearances (mug, pillar)
+    pN = torch.stack([frame_placement(model, x[-1, :model.nq], base).p for x in res.xs])
+    out["miss"] = torch.linalg.vector_norm(pN - pN.new_tensor(TQ.TARGET), dim=-1).cpu().numpy()
+    out["clearances"] = np.array([TQ.min_clearances(model, x, geoms) for x in res.xs])
+    out["pN0"] = pN[0].cpu().numpy()
+    walls = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        solve(prob16, fused)
+        torch.cuda.synchronize()
+        walls.append((time.perf_counter() - t0) * 1e3)
+    out["walls_ms"] = walls
+    xs, us = xs_default_init(prob16), us_default_init(prob16)
+    compute_derivatives(prob16, xs, us)
+    _, kern, busy, _ = trace_device(lambda: compute_derivatives(prob16, xs, us))
+    out["deriv_kernels"], out["deriv_busy_ms"] = len(kern), busy / 1e3
+    return out
+
+
+def _quadrotor_child(conn, device, part) -> None:
+    conn.send(quadrotor_solves(torch.device(device), part))
+    conn.close()
+
+
+# (a) on the card, its fused and its reference solves side by side; the
+# CPU solves of all seven, the card's acrobot (200 iterations) alone, the
+# card's six others
+EXAMPLE_CHILDREN = {
+    "quadrotor fused": (_quadrotor_child, ("cuda", "fused")),
+    "quadrotor reference": (_quadrotor_child, ("cuda", "reference")),
+    "examples cpu": (_examples_child, (tuple(EXAMPLES), "cpu")),
+    "examples card acrobot": (_examples_child, (("acrobot",), "cuda")),
+    "examples card": (_examples_child, (tuple(n for n in EXAMPLES if n != "acrobot"), "cuda")),
+}
+
+
+def quadrotor_report(q) -> dict:
+    """Prints and checks (a); returns K1's and K2's launches in the fused
+    solve."""
+    f, sr, f64 = q["fused"], q["serial"], q["f64"]
+    k1, k2 = q["counts"]["riccati_backward"], q["counts"]["riccati_forward"]
+    iters = f["iters"].tolist()
+    print(f"quadrotor: N={q['N']} nx={q['nx']} ndx={q['ndx']} nu={q['nu']} nc={q['nc']} "
+          f"B={QUAD_BATCH} f32; fused solve (first call {q['first_s']:.2f} s): conv "
+          f"{int(f['conv'].sum())}/{QUAD_BATCH}, iterations {iters}, prim max {f['prim']:.3e}, "
+          f"dual max {f['dual']:.3e}, K1 launches {k1}, K2 launches {k2}")
+    check(f["shape"] == (QUAD_BATCH, q["N"] + 1, q["nx"]) and f["finite"],
+          "quadrotor xs finite, of the expected shape")
+    check(bool(f["conv"].all()), "every quadrotor scenario converges through the kernels")
+    check(k1 == k2 >= max(iters) >= 1, "quadrotor kernel launch counts")
+    held = q["held"]
+    worst = {k: max((e for n, e in held if n == k), default=float("nan")) for k in ("K1", "K2")}
+    print(f"quadrotor: the fused solve's {len(held)} kernel calls held to the plain versions on "
+          f"the same inputs: max over calls of max|d|/max(1, max|plain|) K1 {worst['K1']:.3e}, "
+          f"K2 {worst['K2']:.3e}")
+    check(sum(n == "K1" for n, _ in held) == k1 and sum(n == "K2" for n, _ in held) == k2,
+          "every quadrotor kernel call held to its plain version")
+    check(worst["K1"] <= 1e-4 and worst["K2"] <= 1e-4,
+          "the quadrotor's K1 and K2 calls agree with their plain versions to 1e-4")
+    gap = lambda a, b: np.abs(a - b) / np.maximum(np.abs(b), 1.0)
+    g_s, g_64, g_s64 = gap(f["cost"], sr["cost"]), gap(f["cost"], f64["cost"]), gap(
+        sr["cost"], f64["cost"])
+    print(f"quadrotor: serial f32 iterations {sr['iters'].tolist()} (equal to the fused in "
+          f"{int((f['iters'] == sr['iters']).sum())}/{QUAD_BATCH}), conv "
+          f"{int(sr['conv'].sum())}/{QUAD_BATCH}; serial f64 iterations {f64['iters'].tolist()}, "
+          f"conv {int(f64['conv'].sum())}/{QUAD_BATCH}")
+    print(f"quadrotor: traj cost fused f32 {np.round(f['cost'], 6).tolist()}, serial f32 "
+          f"{np.round(sr['cost'], 6).tolist()}, serial f64 {np.round(f64['cost'], 6).tolist()}")
+    print(f"quadrotor: traj cost diff per scenario (relative to max(1, |.|)), fused f32 vs serial "
+          f"f32 {[float('%.3e' % v) for v in g_s]} (median {float(np.median(g_s)):.3e}), fused "
+          f"f32 vs serial f64 {[float('%.3e' % v) for v in g_64]} (median "
+          f"{float(np.median(g_64)):.3e}), serial f32 vs serial f64 "
+          f"{[float('%.3e' % v) for v in g_s64]}")
+    check(bool(sr["conv"].all()) and bool(f64["conv"].all()),
+          "every quadrotor scenario converges serial in f32 and in f64")
+    # a scenario may converge to another local optimum in float32 (ROADMAP
+    # C10): the costs agree to 1e-3 in the median scenario
+    check(float(np.median(g_s)) <= 1e-3, "quadrotor fused vs serial traj cost to 1e-3 (median)")
+    check(float(np.median(g_64)) <= 1e-3, "quadrotor f32 fused vs f64 traj cost to 1e-3 (median)")
+    clear = q["clearances"]
+    print(f"quadrotor: scenario 0 final position {[round(float(v), 4) for v in q['pN0']]}; over "
+          f"the {QUAD_BATCH} scenarios the largest distance to the target "
+          f"{float(q['miss'].max()):.4f} m, least clearances (mug, pillar) "
+          f"{[round(float(c), 5) for c in clear.min(0)]} (margin {TQ.MARGIN})")
+    check(float(q["miss"].max()) < 5e-2, "every quadrotor scenario ends within 5e-2 of the target")
+    check(float(clear.min()) >= TQ.MARGIN - 2e-3, "every quadrotor scenario keeps its clearances")
+    print(f"quadrotor: fused solve of {QUAD_BATCH} scenarios wall ms "
+          f"{[round(w, 1) for w in q['walls_ms']]} (median {float(np.median(q['walls_ms'])):.1f}, "
+          f"beside the solvers phase), {max(iters)} iterations, K1 {k1} and K2 {k2} launches "
+          f"per solve; one compute_derivatives call at B={QUAD_BATCH}, N={q['N']}: "
+          f"{q['deriv_kernels']} device kernels, device busy {q['deriv_busy_ms']:.3f} ms")
+    return {"riccati_backward_quadrotor": k1, "riccati_forward_quadrotor": k2}
+
+
+def examples_phase(pipes):
+    """(a) and (b) from their child processes: the quadrotor's report, then
+    the seven other examples' card and CPU solves held against each other
+    (equal conv and iterations, xs and us to 1e-9·max(1, max|·|)) and
+    against the JAX tests' physical outcomes. Returns the quadrotor's
+    K1 and K2 launches."""
+    t0 = time.perf_counter()
+    results = {}
+    for name in EXAMPLE_CHILDREN:
+        check(pipes[name].poll(900), f"the {name} child process finished")
+        results[name] = pipes[name].recv()
+    print(f"examples: child results waited for {time.perf_counter() - t0:.1f} s")
+    launches = quadrotor_report({**results["quadrotor fused"], **results["quadrotor reference"]})
+    cpu = results["examples cpu"]
+    card = {**results["examples card"], **results["examples card acrobot"]}
+    for name in EXAMPLES:
+        xs, us, conv, n_it, secs, out = card[name]
+        xs_c, us_c, conv_c, n_it_c, secs_c, out_c = cpu[name]
+        ex = float(np.abs(xs - xs_c).max()) / max(1.0, float(np.abs(xs_c).max()))
+        eu = float(np.abs(us - us_c).max()) / max(1.0, float(np.abs(us_c).max()))
+        print(f"examples: {name} f64: card conv {conv}, iterations {n_it}, {secs:.1f} s; CPU conv "
+              f"{conv_c}, iterations {n_it_c}, {secs_c:.1f} s; max|dxs| {ex:.3e}, max|dus| "
+              f"{eu:.3e} (relative to max(1, max|.|)); outcomes card {json.dumps(out)}, CPU "
+              f"{json.dumps(out_c)}")
+        check(conv and conv_c, f"example {name} converges on the card and the CPU")
+        check(n_it == n_it_c, f"example {name}: equal iterations on the card and the CPU")
+        tol_x = EXAMPLE_TOL.get(name, 1e-9)
+        check(ex <= tol_x and eu <= tol_x, f"example {name} card vs CPU to {tol_x:g}")
+    check(card["ur5_obstacle"][5]["min_clearance"] >= 0.02 - 2e-3,
+          "ur5_obstacle keeps its margin")
+    check(card["ur5_ballistic"][5]["landing_miss"] < 1e-2
+          and card["ur5_ballistic"][5]["max_abs_u"] <= 150.0 + 1e-6,
+          "ur5_ballistic lands on target within its effort bound")
+    check(card["acrobot"][5]["norm_xN"] < 1e-3, "acrobot reaches the upright state")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1282,7 +1614,14 @@ def main() -> int:
     print(f"mpc phase: {time.perf_counter() - t0:.1f} s")
     walk_launches, walk_cost = walk_phase(dev)
     launches.update(walk_launches)
-    solvers_phase(dev, walk_cost)
+    # K1 and K2 at the quadrotor's widths alone on the card; then the
+    # examples' solves in child processes beside the solvers phase
+    kernels += k_quad_check(dev)
+    t0 = time.perf_counter()
+    with spawned(EXAMPLE_CHILDREN) as example_pipes:
+        solvers_phase(dev, walk_cost)
+        launches.update(examples_phase(example_pipes))
+    print(f"solvers and examples phases: {time.perf_counter() - t0:.1f} s")
     print(f"all phases: {time.perf_counter() - t_run:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
