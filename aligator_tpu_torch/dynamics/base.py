@@ -6,6 +6,7 @@ A, B the tangent Jacobians of d (``torch.func.jacfwd`` by default)."""
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 
 import torch
@@ -44,3 +45,39 @@ class ODE:
 
     def xdot(self, space: Manifold, x, u) -> torch.Tensor:
         raise NotImplementedError
+
+
+_VALUES_ONLY = [0]
+
+
+@contextlib.contextmanager
+def values_only():
+    """A block that evaluates the dynamics for their values alone, under no
+    forward-mode transform (a problem evaluation, a rollout). There the
+    implicit steps of the multibody dynamics return their primal solve,
+    the value the JAX package's custom JVP rules return, and skip the
+    Newton correction that carries their tangent (about half of a contact
+    step's work). A ``jacfwd`` or ``jvp`` through the dynamics inside the
+    block would lose those tangents: code that takes one there wraps it in
+    :func:`tangents_kept` (``ImplicitToExplicit``'s Newton solve)."""
+    _VALUES_ONLY[0] += 1
+    try:
+        yield
+    finally:
+        _VALUES_ONLY[0] -= 1
+
+
+@contextlib.contextmanager
+def tangents_kept():
+    """A block, inside :func:`values_only` or not, whose dynamics carry
+    their tangents: for a ``jacfwd`` through the dynamics that a value
+    itself needs."""
+    saved, _VALUES_ONLY[0] = _VALUES_ONLY[0], 0
+    try:
+        yield
+    finally:
+        _VALUES_ONLY[0] = saved
+
+
+def values_only_active() -> bool:
+    return _VALUES_ONLY[0] > 0

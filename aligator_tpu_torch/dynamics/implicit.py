@@ -6,10 +6,11 @@ explicit ones.
 The JAX package's wrapper solves the residual under ``jax.lax.custom_root``
 so that derivatives follow the implicit-function theorem. Here that rule
 is an implicit step, as ``multibody.algorithms._fd_implicit`` writes its
-own: the Newton solve runs on detached inputs, then one more Newton step
-is taken with the Jacobian of the residual detached and the residual
-itself on the live inputs, dz = dz₀ − J⁻¹ g(dz₀). Its value is dz₀ to
-rounding (g(dz₀) ≈ 0 after the solve), and under ``torch.func.jacfwd`` /
+own: the Newton solve runs on detached inputs, then a Newton step
+s = J⁻¹ g(dz₀) is formed with the Jacobian of the residual detached and
+the residual itself on the live inputs, and dz = dz₀ − (s − s̄) with s̄ the
+detached s. Its value is dz₀, the JAX solve's own (also where the fixed
+Newton count leaves a residual), and under ``torch.func.jacfwd`` /
 ``vmap`` its tangent is −J⁻¹ ∂g/∂θ · δθ: the implicit-function theorem's.
 No ``torch.autograd.Function`` is used (ROADMAP A14: with
 ``generate_vmap_rule`` its JVP comes out wrong under ``vmap(jacfwd(·))``).
@@ -27,7 +28,7 @@ from typing import Any
 import torch
 from torch.func import jacfwd
 
-from aligator_tpu_torch.dynamics.base import ExplicitDynamics
+from aligator_tpu_torch.dynamics.base import ExplicitDynamics, tangents_kept
 from aligator_tpu_torch.manifolds.base import Manifold
 from aligator_tpu_torch.utils.tree import detached, static_field
 
@@ -90,10 +91,12 @@ class ImplicitToExplicit(ExplicitDynamics):
 
         z0 = torch.zeros(space.ndx, dtype=torch.promote_types(x.dtype, u.dtype),
                          device=x.device)
-        dz0 = newton_raphson(g_d, z0, self.newton_iters)
-        J = jacfwd(g_d)(dz0)
+        with tangents_kept():  # the Newton matrix is ∂g/∂dz through ẋ
+            dz0 = newton_raphson(g_d, z0, self.newton_iters)
+            J = jacfwd(g_d)(dz0)
         r = self.impl.residual(space, x, u, space.integrate(x_guess, dz0))
-        return space.integrate(x_guess, dz0 - _solve(J, r))
+        step = _solve(J, r)
+        return space.integrate(x_guess, dz0 - (step - step.detach()))
 
 
 def MidpointIntegratorExplicit(ode, dt, newton_iters: int = 8):

@@ -1,5 +1,6 @@
-"""Residual function library (port of ``aligator_tpu.functions``; its
-contact and centroidal families wait in ROADMAP A32)."""
+"""Residual function library (port of ``aligator_tpu.functions``): every
+name the JAX package exports, the contact and centroidal families
+included."""
 
 from aligator_tpu_torch.functions.autodiff import (
     CostFiniteDifference,
@@ -18,6 +19,22 @@ from aligator_tpu_torch.functions.basic import (
     LinearFunction,
     LinearFunctionComposition,
     StateErrorResidual,
+)
+from aligator_tpu_torch.functions.centroidal import (
+    AngularAccelerationResidual,
+    AngularMomentumResidual,
+    CentroidalAccelerationResidual,
+    CentroidalCoMResidual,
+    CentroidalFrictionConeResidual,
+    CentroidalWrapperResidual,
+    CentroidalWrenchConeResidual,
+    LinearMomentumResidual,
+)
+from aligator_tpu_torch.functions.contact import (
+    ContactForceResidual,
+    MultibodyFrictionConeResidual,
+    MultibodyWrenchConeResidual,
+    wrench_cone_matrix,
 )
 from aligator_tpu_torch.functions.frames import (
     CenterOfMassTranslationResidual,

@@ -25,7 +25,10 @@ from aligator_tpu_torch.multibody.contact import (
     ContactSpec,
     anchor_at_configuration,
     constrained_dynamics,
+    contact_forces,
+    contact_slice,
     make_contact_set,
+    underactuated_constrained_inverse_dynamics,
 )
 from aligator_tpu_torch.multibody.geometry import GeomObject, pair_distance
 from aligator_tpu_torch.multibody.model import (
@@ -33,8 +36,10 @@ from aligator_tpu_torch.multibody.model import (
     JointSpec,
     MultibodyModel,
     build_humanoid,
+    build_quadruped,
     build_serial_chain,
     humanoid_half_sitting,
+    quadruped_standing,
 )
 from aligator_tpu_torch.multibody.spaces import (
     MultibodyConfiguration,

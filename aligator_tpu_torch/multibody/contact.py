@@ -13,6 +13,10 @@ data, so one problem covers a whole gait and the flags stack over the
 horizon. An inactive contact's rows and drift are masked to zero, which
 makes its multiplier exactly 0 through the σ-regularized Schur system.
 
+``contact_forces`` (λ for the force residuals), ``contact_slice`` and
+``underactuated_constrained_inverse_dynamics`` (the static balance of
+torques and contact forces) complete the JAX module's API.
+
 Derivatives follow the JAX package's implicit rule ``_cd_implicit``
 (implicit differentiation of the KKT system, reusing the factors of M and
 G = J M⁻¹ Jᵀ + σI), written as an implicit step from a detached primal
@@ -27,6 +31,7 @@ from typing import List, Tuple
 import torch
 from torch.func import jvp
 
+from aligator_tpu_torch.dynamics.base import values_only_active
 from aligator_tpu_torch.linalg.spd import spd_factor, spd_solve_factored
 from aligator_tpu_torch.multibody.algorithms import (
     Kinematics,
@@ -225,6 +230,8 @@ def _cd_implicit(prox_sigma, model, contacts, q, v, tau):
     Newton step from the detached primal solution (a₀, λ₀) on the
     residual F, whose value is ~0 and whose tangent is δF."""
     a0, lam0, mfac, gfac, J = _cd_primal(prox_sigma, *detached((model, contacts, q, v, tau)))
+    if values_only_active():
+        return a0, lam0
     Ft, Fb = _kkt_residual(prox_sigma, a0, lam0, model, contacts, q, v, tau)
     dlam = spd_solve_factored(gfac, J @ spd_solve_factored(mfac, Ft, refine_steps=1) - Fb,
                               refine_steps=1)
@@ -239,3 +246,42 @@ def constrained_dynamics(model: MultibodyModel, contacts: ContactSet, q, v, tau,
     if contacts.nc == 0:
         return fwd_dynamics(model, q, v, tau), q.new_zeros((0,))
     return _cd_implicit(prox_sigma, model, contacts, q, v, tau)
+
+
+def contact_forces(model: MultibodyModel, contacts: ContactSet, actuation, x, u,
+                   prox_sigma: float = 1e-8) -> torch.Tensor:
+    """λ(x, u) of the contact dynamics for the force residuals: the
+    multiplier output of the implicit contact step at τ = B·u."""
+    nq = model.nq
+    tau = (actuation @ u[..., None])[..., 0]
+    return constrained_dynamics(model, contacts, x[..., :nq], x[..., nq:], tau, prox_sigma)[1]
+
+
+def underactuated_constrained_inverse_dynamics(model: MultibodyModel, contacts: ContactSet,
+                                               actuation, q, v):
+    """Static torques and contact forces balancing the nonlinear effects:
+    the minimum-norm least-squares solution of [B, −Jᵀ]·[u; λ] = nle(q, v).
+    Returns (u, λ).
+
+    The system is wide (nv rows, nu + nc columns) and so underdetermined.
+    The JAX package takes ``jnp.linalg.lstsq``'s minimum-norm answer (an
+    SVD); ``torch.linalg.lstsq`` on CUDA has only the full-rank ``gels``
+    routine. The same answer on both devices comes from the pseudo-inverse
+    (an SVD, singular values below max(m, n)·eps·σ_max dropped, as lstsq's
+    default cut-off)."""
+    b = rnea(model, q, v, torch.zeros_like(v))
+    J, _ = _contact_rows(model, contacts, q, v, kinematics(model, q))
+    W = torch.cat([actuation, -J.mT], dim=1)
+    sol = torch.linalg.pinv(W) @ b
+    nu = actuation.shape[1]
+    return sol[:nu], sol[nu:]
+
+
+def contact_slice(contacts: ContactSet, name: str) -> slice:
+    """Row slice of contact ``name`` inside the stacked λ vector."""
+    off = 0
+    for s in contacts.specs:
+        if s.name == name:
+            return slice(off, off + s.dim)
+        off += s.dim
+    raise KeyError(name)

@@ -11,6 +11,11 @@ a *run*; per-joint work that does not depend on the tree (joint
 transforms, motion subspaces, chart maps) is done once per run on
 stacked tensors, which keeps the number of torch operations per call
 small.
+
+``configuration_integrate`` and ``configuration_difference`` are the
+port's names for the JAX package's ``spaces.integrate_configuration``
+and its per-joint ``joint_integrate`` / ``joint_difference`` (one
+operation set per run instead of one per joint).
 """
 
 from __future__ import annotations
@@ -350,3 +355,56 @@ def humanoid_half_sitting(model: MultibodyModel, dtype=torch.float64,
         q[off + 3] = 0.8
         q[off + 4] = -0.4
     return torch.tensor(q, dtype=dtype, device=device)
+
+
+def build_quadruped(dtype=torch.float64, device=None) -> MultibodyModel:
+    """Solo-12-class quadruped: a free flyer and 12 actuated joints (4 legs
+    of [HAA (x roll), HFE (y pitch), KFE (y pitch)]), so nq = 19, nv = 18,
+    nu = 12; frames ``{fl,fr,hl,hr}_foot`` at the lower-leg tips. The same
+    model as the JAX package's ``build_quadruped``, on ``device`` (default:
+    the card; raises without one)."""
+    joints, parents, jp, mass, com, inert = [], [], [], [], [], []
+
+    def add(jtype, axis, parent, p, m, c_off, half_dims):
+        joints.append(JointSpec(jtype, axis))
+        parents.append(parent)
+        jp.append(np.asarray(p, float))
+        mass.append(m)
+        com.append(np.asarray(c_off, float))
+        inert.append(_box_inertia(m, *[2 * h for h in half_dims]))
+        return len(joints) - 1
+
+    X, Y = (1, 0, 0), (0, 1, 0)
+    upper, lower = 0.16, 0.16
+    base = add("freeflyer", None, -1, (0, 0, 0), 1.2, (0, 0, 0), (0.17, 0.1, 0.04))
+
+    def add_leg(fx, fy):
+        haa = add("revolute", X, base, (fx * 0.19, fy * 0.1046, 0.0), 0.15, (0, 0, 0),
+                  (0.03, 0.03, 0.03))
+        hfe = add("revolute", Y, haa, (0, fy * 0.014, 0), 0.2, (0, 0, -upper / 2),
+                  (0.03, 0.03, upper / 2))
+        return add("revolute", Y, hfe, (0, 0, -upper), 0.1, (0, 0, -lower / 2),
+                   (0.02, 0.02, lower / 2))
+
+    legs = [add_leg(fx, fy) for fx, fy in ((+1, +1), (+1, -1), (-1, +1), (-1, -1))]
+    frames = tuple(FrameSpec(f"{n}_foot", k) for n, k in zip(("fl", "fr", "hl", "hr"), legs))
+    return MultibodyModel.create(
+        np.stack([np.eye(3)] * len(joints)), np.stack(jp), np.asarray(mass), np.stack(com),
+        np.stack(inert), np.stack([np.eye(3)] * 4), np.tile(np.array([[0.0, 0.0, -lower]]), (4, 1)),
+        np.array([0.0, 0.0, -9.81]), joints, parents, frames, dtype=dtype, device=device)
+
+
+def quadruped_standing(model: MultibodyModel, dtype=torch.float64,
+                       device=None) -> torch.Tensor:
+    """Solo standing posture: bent legs (HFE ±0.8, KFE ∓1.6, the front and
+    hind knees folded inward), the base at the resulting height; on the
+    model's device unless ``device`` is given."""
+    q = np.zeros(model.nq)
+    upper = lower = 0.16
+    q[2] = upper * np.cos(0.8) + lower * np.cos(0.8)
+    q[6] = 1.0  # quaternion w
+    for i, off in enumerate(range(7, 7 + 12, 3)):  # legs fl, fr, hl, hr: [HAA, HFE, KFE]
+        front = i < 2
+        q[off + 1] = 0.8 if front else -0.8
+        q[off + 2] = -1.6 if front else 1.6
+    return torch.tensor(q, dtype=dtype, device=model.mass.device if device is None else device)

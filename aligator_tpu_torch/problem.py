@@ -19,6 +19,7 @@ import torch
 from torch.func import hessian, vmap
 
 from aligator_tpu_torch.constraints import ConstraintSet, ConstraintSetProduct
+from aligator_tpu_torch.dynamics.base import values_only
 from aligator_tpu_torch.functions.basic import StateErrorResidual
 from aligator_tpu_torch.manifolds.base import Manifold
 from aligator_tpu_torch.utils.device import resolve_device
@@ -202,10 +203,11 @@ def evaluate(problem: TrajOptProblem, xs: torch.Tensor, us: torch.Tensor) -> Pro
         return (cost.value(space, x, u), dyn.defect(space, x, u, x_next),
                 _stage_cstr_values(cstrs, x, u))
 
-    costs, defects, cstr_vals = _vmap_batch(
-        stage, (problem.dynamics, problem.cost, problem.constraints),
-        xs[:, :N], us, xs[:, 1:], time=True,
-    )
+    with values_only():
+        costs, defects, cstr_vals = _vmap_batch(
+            stage, (problem.dynamics, problem.cost, problem.constraints),
+            xs[:, :N], us, xs[:, 1:], time=True,
+        )
 
     def terminal(objs, x):
         tcost, tcstrs = objs
@@ -353,7 +355,8 @@ def rollout(problem: TrajOptProblem, x0: torch.Tensor, us: torch.Tensor) -> torc
             xs.append(stage_at(dyn, t).forward(space, xs[-1], us[t]))
         return torch.stack(xs)
 
-    return _vmap_batch(roll, problem.dynamics, x0, us)
+    with values_only():
+        return _vmap_batch(roll, problem.dynamics, x0, us)
 
 
 def xs_default_init(problem: TrajOptProblem) -> torch.Tensor:

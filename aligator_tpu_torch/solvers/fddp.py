@@ -26,6 +26,7 @@ from typing import NamedTuple, Optional
 import torch
 from torch.func import vmap
 
+from aligator_tpu_torch.dynamics.base import values_only
 from aligator_tpu_torch.gar.riccati import mv
 from aligator_tpu_torch.linalg.schur import cholesky
 from aligator_tpu_torch.linalg.spd import _cho_solve
@@ -163,7 +164,8 @@ def _forward(problem: TrajOptProblem, xs, us, fs, kff, K, alpha):
             us_try.append(u)
         return torch.stack(xs_try), torch.stack(us_try)
 
-    xs_try, us_try = _vmap_batch(roll, problem.dynamics, xs, us, fs, kff, K, alpha)
+    with values_only():
+        xs_try, us_try = _vmap_batch(roll, problem.dynamics, xs, us, fs, kff, K, alpha)
     dxs = vmap(vmap(space.difference))(xs, xs_try)
     return xs_try, us_try, dxs, stage_costs(problem, xs_try, us_try)
 

@@ -5,8 +5,10 @@ infeasibility) filter (port of ``aligator_tpu.solvers.linesearch``).
 Batched: α, φ and every payload leaf carry a leading batch axis. The JAX
 ``lax.while_loop`` under ``jax.vmap`` runs until every element is done,
 freezing each finished element by a select; these loops do exactly that
-with ``tree_where``. A non-finite merit fails the acceptance test and the
-backtracking continues. The filter's pair list is a fixed-capacity masked
+with ``tree_where``. Bisection, whose trial steps are known in advance,
+evaluates several trials of the pending elements per call instead, as
+rows (``_backtrack_rows``). A non-finite merit fails the acceptance test
+and the backtracking continues. The filter's pair list is a fixed-capacity masked
 array per element.
 """
 
@@ -17,7 +19,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
-from aligator_tpu_torch.utils.tree import tree_where
+from aligator_tpu_torch.utils.tree import tree_map, tree_where
 
 
 @dataclasses.dataclass(frozen=True)
@@ -38,9 +40,6 @@ def _interp_next_alpha(opts, alpha, phi_a, prev_alpha, prev_phi, prev_valid,
     [c_min·α, c_max·α]; NaN → c_min·α. All arguments are (B,)."""
     lo = opts.contraction_min * alpha
     hi = opts.contraction_max * alpha
-    if opts.interp_type == "bisection":
-        return opts.beta_dec * alpha
-
     qa = (phi_a - phi0 - alpha * dphi0) / (alpha * alpha)
     a_quad = -dphi0 / (2.0 * qa)
     quad_eval = lambda a: qa * a * a + dphi0 * a + phi0
@@ -78,6 +77,7 @@ def armijo_run(
     dphi0: torch.Tensor,
     opts: LinesearchOptions,
     phi_ref: Optional[torch.Tensor] = None,
+    phi_eval_rows: Optional[Callable] = None,
 ):
     """Backtracking Armijo with safeguarded interpolation over a batch.
 
@@ -85,12 +85,22 @@ def armijo_run(
     the trial. ``phi_ref`` overrides the acceptance reference (the
     Zhang-Hager average for the nonmonotone variant). Returns
     ``(alpha, phi, payload)`` of the accepted (or last) trial per element.
+
+    Bisection, whose trial steps do not depend on the merit values, needs
+    ``phi_eval_rows(idx (M,), alpha (M,)) -> (phi (M,), payload)`` (trial
+    steps of chosen elements, one row each) and evaluates several trials
+    of the elements not yet accepted per call: see :func:`_backtrack_rows`.
+    The interpolating variants evaluate the whole batch at each trial.
     """
     if phi_ref is None:
         phi_ref = phi0
     one = torch.ones_like(phi0)
     phi1, payload1 = phi_eval(one)
     ok1 = torch.isfinite(phi1) & (phi1 - phi_ref <= opts.armijo_c1 * one * dphi0)
+    if opts.interp_type == "bisection":
+        if phi_eval_rows is None:
+            raise ValueError("bisection backtracking needs phi_eval_rows")
+        return _backtrack_rows(phi_eval_rows, one, phi1, payload1, ok1, phi_ref, dphi0, opts)
     c = dict(alpha=one, phi=phi1, payload=payload1, prev_alpha=one, prev_phi=phi1,
              prev_valid=torch.zeros_like(ok1), done=ok1,
              cnt=torch.zeros_like(phi0, dtype=torch.int32))
@@ -119,6 +129,69 @@ def armijo_run(
         )
         c = tree_where(active, new, c)
     return c["alpha"], c["phi"], c["payload"]
+
+
+def _bisection_steps(opts: LinesearchOptions, like: torch.Tensor) -> torch.Tensor:
+    """The trial steps after the full one, as the backtracking loop makes
+    them (α ← max(β·α, α_min) until α ≤ α_min or ``max_num_steps``), in
+    ``like``'s dtype, on the host."""
+    a, steps = torch.ones((), dtype=like.dtype), []
+    while len(steps) < opts.max_num_steps:
+        a = torch.clamp(opts.beta_dec * a, min=opts.alpha_min)
+        steps.append(a)
+        if bool(a <= opts.alpha_min):
+            break
+    return torch.stack(steps) if steps else like.new_zeros((0,)).cpu()
+
+
+# Rows per call of the bisection backtracking beyond the batch's own: the
+# jump's 16 scenarios, all backtracking to α_min (20 trials), take one call.
+ROWS_PER_CALL = 512
+
+
+def _backtrack_rows(phi_eval_rows, one, phi1, payload1, ok1, phi_ref, dphi0, opts):
+    """The bisection backtracking of :func:`armijo_run` after its full
+    step. An element's trial steps do not depend on its merit values, so
+    each call evaluates the next ⌊R / pending⌋ trials (at least one) of
+    every element not yet accepted, one row each, R = max(B,
+    ``ROWS_PER_CALL``), and the elements that accept leave before the next
+    call. A loop over the trials evaluates B rows per call; here a call
+    holds at most R rows and advances every pending element by at least
+    one trial, so there are no more calls than that loop makes. Each
+    element ends at its first accepted trial (or its last), with φ and
+    payload of the last finite trial up to it (else the full step's)."""
+    steps = _bisection_steps(opts, phi1).to(phi1.device)
+    K, R = steps.shape[0], max(phi1.shape[0], ROWS_PER_CALL)
+    alpha, phi, payload = one.clone(), phi1, payload1
+    pending = torch.nonzero(~ok1).flatten()
+    k0 = 0
+    while pending.numel() and k0 < K:
+        n = pending.shape[0]
+        w = min(max(1, R // n), K - k0)
+        trial = steps[k0:k0 + w]
+        idx, a = pending.repeat_interleave(w), trial.repeat(n)
+        phi_r, payload_r = phi_eval_rows(idx, a)
+        finite = torch.isfinite(phi_r)
+        ok = finite & (phi_r - phi_ref[idx] <= opts.armijo_c1 * a * dphi0[idx])
+        finite, ok = finite.reshape(n, w), ok.reshape(n, w)
+        k = torch.arange(w, device=phi1.device)
+        stop = torch.where(ok, k, w).min(dim=1).values  # w: none accepted here
+        upto = stop.clamp(max=w - 1)
+        last_finite = torch.where(finite & (k <= upto[:, None]), k, -1).max(dim=1).values
+        has = last_finite >= 0
+        take = pending[has]
+        src = (torch.arange(n, device=phi1.device) * w + last_finite)[has]
+
+        def put(full, part):
+            out = full.clone()
+            out[take] = part[src]
+            return out
+
+        phi, payload = put(phi, phi_r), tree_map(put, payload, payload_r)
+        alpha[pending] = trial[upto]
+        pending = pending[stop == w]
+        k0 += w
+    return alpha, phi, payload
 
 
 # ---------------------------------------------------------------------------

@@ -37,6 +37,7 @@ from typing import Any, NamedTuple, Optional
 import torch
 from torch.func import vmap
 
+from aligator_tpu_torch.dynamics.base import values_only
 from aligator_tpu_torch.gar import assoc as _assoc
 from aligator_tpu_torch.gar import fused_riccati as _fused
 from aligator_tpu_torch.gar import riccati as _riccati
@@ -235,6 +236,17 @@ class _State:
 
     def replace(self, **changes) -> "_State":
         return dataclasses.replace(self, **changes)
+
+
+def _problem_rows(problem: TrajOptProblem, idx: torch.Tensor) -> TrajOptProblem:
+    """The problems of batch elements ``idx`` (M,), one per row: leaves
+    shared by the batch stay shared, per-element leaves and x0 are taken at
+    ``idx``."""
+    rows = lambda t: tree_map(lambda a: a if a.shape[0] == 1 else a[idx], t)
+    return problem.replace(
+        x0=problem.x0[idx], dynamics=rows(problem.dynamics), cost=rows(problem.cost),
+        term_cost=rows(problem.term_cost), constraints=rows(problem.constraints),
+        term_constraints=rows(problem.term_constraints))
 
 
 def _b(v: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -560,8 +572,8 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
 
     # internal cost normalization (ProxDDPSettings.cost_scale): cost values,
     # gradients and Hessians are scaled; results are unscaled on return
-    def evaluate(xs, us):
-        data = _eval_raw(problem, xs, us)
+    def evaluate(xs, us, prob=problem):
+        data = _eval_raw(prob, xs, us)
         if g0 != 1.0:
             data = data._replace(costs=data.costs * g0, term_cost=data.term_cost * g0)
         return data
@@ -573,10 +585,10 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
                            Lxu=d.Lxu * g0, Luu=d.Luu * g0)
         return d
 
-    def eval_point(pt: Point, prev_vs, prev_vs_term, mu):
+    def eval_point(pt: Point, prev_vs, prev_vs_term, mu, prob=problem):
         with torch.profiler.record_function("proxddp.evaluate"):
-            data = evaluate(pt.xs, pt.us)
-            mult = _compute_multipliers(problem, s, data, pt, prev_vs, prev_vs_term, mu)
+            data = evaluate(pt.xs, pt.us, prob)
+            mult = _compute_multipliers(prob, s, data, pt, prev_vs, prev_vs_term, mu)
             return data, mult, _merit(s, data, mult, mu)
 
     integrate = vmap(vmap(problem.space.integrate))
@@ -594,7 +606,7 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         )
 
     @named_scope("proxddp.rollout")
-    def try_step_nonlinear(pt: Point, dpt: Point, gains, alpha):
+    def try_step_nonlinear(pt: Point, dpt: Point, gains, alpha, prob=problem):
         """Closed-loop re-rollout of the dynamics through the LQ gains, one
         step per knot, dx measured against the current iterate (dxs[:, 0] =
         0); λ stepped linearly."""
@@ -613,8 +625,9 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
             return (torch.stack(xs_t), torch.stack(us_t), torch.stack(vs_t),
                     space.difference(xs[N], x))
 
-        xs, us, vs, dxN = _vmap_batch(roll, problem.dynamics, pt.xs, pt.us, pt.vs, gains.kff,
-                                      gains.K, gains.zff, gains.Z, alpha)
+        with values_only():
+            xs, us, vs, dxN = _vmap_batch(roll, prob.dynamics, pt.xs, pt.us, pt.vs,
+                                          gains.kff, gains.K, gains.zff, gains.Z, alpha)
         vs_term = (pt.vs_term + _b(alpha, pt.vs_term) * gains.zff[:, N, :nct]
                    + _riccati.mv(gains.Z[:, N, :nct], dxN))
         return Point(xs=xs, us=us, vs=vs, vs_term=vs_term,
@@ -669,6 +682,19 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
             data_t, mult_t, phi_t = eval_point(pt_t, st.prev_vs, st.prev_vs_term, st.mu)
             return phi_t, (pt_t, data_t, mult_t)
 
+        def ls_eval_rows(idx, alpha):
+            """ls_eval of elements ``idx`` at their own steps ``alpha``, one
+            row each."""
+            rows = lambda t: tree_map(lambda a: a[idx], t)
+            prob = _problem_rows(problem, idx)
+            if s.rollout_type == "nonlinear":
+                pt_t = try_step_nonlinear(rows(st.pt), rows(dpt), rows(gains), alpha, prob)
+            else:
+                pt_t = try_step(rows(st.pt), rows(dpt), alpha)
+            data_t, mult_t, phi_t = eval_point(pt_t, rows(st.prev_vs), rows(st.prev_vs_term),
+                                               st.mu[idx], prob)
+            return phi_t, (pt_t, data_t, mult_t)
+
         if s.sa_strategy == "filter":
             def pair_eval(alpha):
                 phi_t, payload = ls_eval(alpha)
@@ -679,7 +705,7 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         else:
             phi_ref = ls_avg if s.sa_strategy == "nonmonotone" else phi0
             alpha_f, phi_f, (pt_f, data_f, mult_f) = armijo_run(
-                ls_eval, phi0, dphi0, ls_opts, phi_ref=phi_ref)
+                ls_eval, phi0, dphi0, ls_opts, phi_ref=phi_ref, phi_eval_rows=ls_eval_rows)
             filt_f = st.filt
 
         # accept unless a rejected direction or non-finite merit: then

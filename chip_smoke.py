@@ -31,7 +31,16 @@ instantiation for widths read at launch and K2 (nx = 12, nu = 4, nc = 6),
 against the serial path, a float64 solve and its physical outcomes, and
 the seven other examples (the LQR, the SE(2) car, the cartpole, the
 acrobot, the UR5 reach, obstacle and ballistic throw) in float64 on the
-card against the CPU (child processes beside the solvers phase). It
+card against the CPU (child processes beside the solvers phase); then the
+legged family of slice 6: the solo-12 jump (N = 45, a flight phase with
+every contact off) as 16 perturbed scenarios in float32 through K1 and
+K2 at nx = 36, nu = 12, nc = 0 (every kernel call held to its plain
+version, and each knot to its own step by its backward error in
+float64), against the serial path, a float64 solve and the jump's
+outcome; the humanoid squat (kinodynamics) and the centroidal CoM shift
+in float64 on the card against the CPU, with the minimum-norm static
+balance of the quadruped and the humanoid; and the jump exported as a
+JSON spec and rebuilt on the card (child processes too). It
 checks the results and prints one JSON line of kernel reports and a
 final status line. Any
 failed check raises, and the script exits non-zero (the one exception,
@@ -54,7 +63,11 @@ import numpy as np
 import torch
 
 from aligator_tpu_torch.convert import lqr_from_numpy, problem_from_numpy
+from aligator_tpu_torch.dynamics.multibody import floating_base_actuation
+from aligator_tpu_torch.examples import centroidal as TC
+from aligator_tpu_torch.examples import humanoid_squat as TH
 from aligator_tpu_torch.examples import quadrotor_obstacles as TQ
+from aligator_tpu_torch.examples import solo_jump as TJ
 from aligator_tpu_torch.examples import talos_walk as TW
 from aligator_tpu_torch.examples.pendulum import create_pendulum_problem
 from aligator_tpu_torch.gar import assoc as GA
@@ -65,8 +78,21 @@ from aligator_tpu_torch.gar import riccati as GR
 from aligator_tpu_torch.gar import stagedense as GSD
 from aligator_tpu_torch.gar.riccati import knots_of
 from aligator_tpu_torch.gar.utils import lqr_kkt_error
+from aligator_tpu_torch.io import problem_from_spec, problem_to_spec
 from aligator_tpu_torch.mpc import init_mpc_state, mpc_step
 from aligator_tpu_torch.multibody.algorithms import frame_placement
+from aligator_tpu_torch.multibody.contact import (
+    anchor_at_configuration,
+    make_contact_set,
+    underactuated_constrained_inverse_dynamics,
+)
+from aligator_tpu_torch.multibody.model import (
+    build_humanoid,
+    build_quadruped,
+    humanoid_half_sitting,
+    quadruped_standing,
+)
+from aligator_tpu_torch.multibody.urdf import model_to_urdf
 from aligator_tpu_torch.problem import compute_derivatives, us_default_init, xs_default_init
 from aligator_tpu_torch.probes import layout_probe as LP
 from aligator_tpu_torch.solvers import fddp as FD
@@ -74,6 +100,7 @@ from aligator_tpu_torch.solvers.fddp import FDDPSettings, fddp_solve
 from aligator_tpu_torch.solvers.proxddp import ProxDDPSettings, solve
 from aligator_tpu_torch.utils import cuda_build
 from aligator_tpu_torch.utils.device import full_f32_matmuls
+from aligator_tpu_torch.utils.tree import tree_map
 
 # lqr56: Talos-reduced widths of the flagship bench (bench.py:44-48)
 NX, NU, NSTEPS, SOLVER_ITERS = 56, 22, 100, 2
@@ -1138,29 +1165,176 @@ def counting_calls(module, name: str):
         setattr(module, name, orig)
 
 
+def _eta(res, den):
+    """max over the trailing axes of |res| / den (componentwise), NaN where
+    res is not finite; the leading (B, L) kept."""
+    if not res[0, 0].numel():
+        return res.new_zeros(res.shape[:2])
+    e = res.abs() / den.clamp(min=1e-300)
+    e = e.flatten(2).amax(2)
+    fin = torch.isfinite(res).flatten(2).all(2)
+    return torch.where(fin, e, torch.full_like(e, float("nan")))
+
+
+def k1_backward_error(knots, mu, g, v, spectrum: bool = True):
+    """(B, L) componentwise backward error of each knot of a backward sweep's
+    outputs (g, v), in float64 from its own cost-to-go at the next knot:
+    the KKT residual [R̂ Dᵀ; D −µI]·[k z] + [r̂ Ŝᵀ; d C], and Vxx, vx, Acl,
+    yff against the recursion's formulas, each entry over the sum of the
+    magnitudes of its terms (R̂ = R + BᵀV'B counted as |R| + |B|ᵀ|V'||B|,
+    and so on). A correct float32 step is at the rounding of its terms
+    however ill-conditioned the recursion, up to the condition number κ of
+    the R̂ that it inverts; NaN where the outputs or V' are not finite.
+    Returns (that error, λmin / λmax of each R̂ (B, L), negative where R̂
+    is not positive definite, NaN where it is not finite; None without
+    ``spectrum``). θ terms are absent (nth = 0 on the fused path)."""
+    up = lambda t: tree_map(lambda a: a.double(), t)
+    k, g, v = up(knots), up(g), up(v)
+    a = lambda t: t.abs()
+    T = lambda t: t.mT
+    nxt = lambda t: torch.cat([t[:, 1:], torch.zeros_like(t[:, :1])], 1)  # 0 past the end
+    Vn, vn = nxt(v.Vxx), nxt(v.vx)
+    mv_ = lambda M, x: (M @ x[..., None])[..., 0]
+    vplus = vn + mv_(Vn, k.f)
+    vplus_a = a(vn) + mv_(a(Vn), a(k.f))
+    R = k.R + T(k.B) @ Vn @ k.B
+    R_a = a(k.R) + T(a(k.B)) @ a(Vn) @ a(k.B)
+    S = k.S + T(k.A) @ Vn @ k.B
+    S_a = a(k.S) + T(a(k.A)) @ a(Vn) @ a(k.B)
+    Q = k.Q + T(k.A) @ Vn @ k.A
+    Q_a = a(k.Q) + T(a(k.A)) @ a(Vn) @ a(k.A)
+    q, q_a = k.q + mv_(T(k.A), vplus), a(k.q) + mv_(T(a(k.A)), vplus_a)
+    r, r_a = k.r + mv_(T(k.B), vplus), a(k.r) + mv_(T(a(k.B)), vplus_a)
+    Kt = torch.cat([g.kff[..., None], g.K], -1)  # (B, L, nu, 1 + nx)
+    Zt = torch.cat([g.zff[..., None], g.Z], -1)
+    b1, b1_a = torch.cat([r[..., None], T(S)], -1), torch.cat([r_a[..., None], T(S_a)], -1)
+    b2 = torch.cat([k.d[..., None], k.C], -1)
+    m = mu.double()[:, None, None, None]
+    res = [(R @ Kt + T(k.D) @ Zt + b1, R_a @ a(Kt) + T(a(k.D)) @ a(Zt) + b1_a),
+           (k.D @ Kt - m * Zt + b2, a(k.D) @ a(Kt) + m * a(Zt) + a(b2)),
+           (v.Vxx - 0.5 * ((Q + S @ g.K + T(k.C) @ g.Z) + T(Q + S @ g.K + T(k.C) @ g.Z)),
+            Q_a + S_a @ a(g.K) + T(a(k.C)) @ a(g.Z) + T(Q_a + S_a @ a(g.K) + T(a(k.C)) @ a(g.Z))),
+           ((v.vx - q - mv_(S, g.kff) - mv_(T(k.C), g.zff))[..., None],
+            (q_a + mv_(S_a, a(g.kff)) + mv_(T(a(k.C)), a(g.zff)))[..., None])]
+    stage = [(g.Acl - k.A - k.B @ g.K, a(k.A) + a(k.B) @ a(g.K)),
+             ((g.yff - k.f - mv_(k.B, g.kff))[..., None],
+              (a(k.f) + mv_(a(k.B), a(g.kff)))[..., None])]
+    eta = torch.stack([_eta(r_, d_) for r_, d_ in res], -1).amax(-1)
+    last = torch.stack([_eta(r_, d_) for r_, d_ in stage], -1).amax(-1)
+    eta = torch.cat([torch.maximum(eta[:, :-1], last[:, :-1]), eta[:, -1:]], 1)
+    # the terminal knot has Acl = 0 and yff = 0
+    eta[:, -1] = torch.maximum(eta[:, -1], (g.Acl[:, -1].flatten(1).abs().amax(1)
+                                            + g.yff[:, -1].abs().amax(1)))
+    ok = torch.isfinite(torch.cat([Vn.flatten(2), vn], -1)).all(-1)
+    nan = torch.full_like(eta, float("nan"))
+    eta = torch.where(ok, eta, nan)
+    if not spectrum:
+        return eta, None
+    fin = torch.isfinite(R).flatten(2).all(2)
+    ev = torch.linalg.eigvalsh(torch.where(fin[..., None, None], R, torch.eye(
+        R.shape[-1], dtype=R.dtype, device=R.device).expand_as(R)))
+    return eta, torch.where(fin, ev[..., 0] / ev[..., -1].abs().clamp(min=1e-300), nan)
+
+
+def k2_backward_error(gains, vms, x0, lbd0, out):
+    """(B, L) componentwise backward error of each step of a forward sweep's
+    outputs (xs, us, vs, λs), in float64 from its own state: x⁺ = yff +
+    Acl x, u = kff + K x, v = zff + Z x, λ⁺ = vx⁺ + Vxx⁺ x⁺, each entry over
+    the sum of the magnitudes of its terms; NaN where not finite."""
+    up = lambda t: tree_map(lambda a: a.double(), t)
+    g, vm, (xs, us, vs, ls) = up(gains), up(vms), up(out)
+    a = lambda t: t.abs()
+    mv_ = lambda M, x: (M @ x[..., None])[..., 0]
+    res = [((xs[:, 0] - x0.double())[:, None, :, None], a(x0.double())[:, None, :, None]),
+           ((ls[:, 0] - lbd0.double())[:, None, :, None], a(lbd0.double())[:, None, :, None]),
+           ((us - g.kff - mv_(g.K, xs))[..., None], (a(g.kff) + mv_(a(g.K), a(xs)))[..., None]),
+           ((vs - g.zff - mv_(g.Z, xs))[..., None], (a(g.zff) + mv_(a(g.Z), a(xs)))[..., None])]
+    nxt = [((xs[:, 1:] - g.yff[:, :-1] - mv_(g.Acl[:, :-1], xs[:, :-1]))[..., None],
+            (a(g.yff[:, :-1]) + mv_(a(g.Acl[:, :-1]), a(xs[:, :-1])))[..., None]),
+           ((ls[:, 1:] - vm.vx[:, 1:] - mv_(vm.Vxx[:, 1:], xs[:, 1:]))[..., None],
+            (a(vm.vx[:, 1:]) + mv_(a(vm.Vxx[:, 1:]), a(xs[:, 1:])))[..., None])]
+    eta = torch.stack([_eta(r_, d_).expand(xs.shape[:2]) for r_, d_ in res], -1).amax(-1)
+    step = torch.stack([_eta(r_, d_) for r_, d_ in nxt], -1).amax(-1)
+    return torch.cat([torch.maximum(eta[:, :-1], step), eta[:, -1:]], 1)
+
+
 @contextlib.contextmanager
-def kernels_held_to_plain(log: list):
+def kernels_held_to_plain(log: list, backward_error: bool = False):
     """While the block runs, every K1 and K2 launch through the fused
     wrappers is followed by the plain version on the same inputs (not
     counted as a launch); ``log`` gets one (kernel, max over outputs of
-    max|Δ| / max(1, max|plain|)) per call. The launch counts carry over
-    to the wrappers."""
+    max|Δ| / max(1, max|plain|) over the problems whose plain outputs are
+    finite, problems whose plain outputs are not, those of them whose
+    kernel outputs are not either, seconds of the plain version) per call:
+    where the float32 recursion breaks down on finite inputs (ROADMAP C5,
+    C13) both results are meaningless and the solver rejects the step.
+
+    With ``backward_error`` the entry ends with a dict of numpy arrays:
+    ``kernel`` and ``plain`` (B, L), each knot's backward error of the
+    kernel's and of the plain version's outputs (``k1_backward_error``,
+    ``k2_backward_error``; NaN where not finite), ``kp`` (B,), the kernel
+    against the plain version per problem as max over outputs of max|Δ| /
+    max(1, max|plain|), inf where either is not finite, and for K1
+    ``ratio`` (B, L), λmin / λmax of R̂ at each knot of the kernel's sweep,
+    and its width ``nu``. The launch counts carry over to the wrappers."""
     orig_b, orig_f = FR.backward_sweep_batched, FR.forward_sweep_batched
 
     def rel(pairs):
-        return max(max_err(a, b) / max(1.0, float(b.abs().max()) if b.numel() else 0.0)
-                   for a, b in pairs)
+        """(max over outputs of max|Δ| / max(1, max|plain|) over the problems
+        whose plain outputs are all finite, the problems whose plain
+        outputs are not, those of them whose kernel outputs are not
+        either)."""
+        pairs = [(a.flatten(1), b.flatten(1)) for a, b in pairs]
+        ok = torch.stack([torch.isfinite(b).all(1) for _, b in pairs]).all(0)
+        k_bad = torch.stack([~torch.isfinite(a).all(1) for a, _ in pairs]).any(0)
+        worst = 0.0
+        for a, b in pairs:
+            if b.numel() and bool(ok.any()):
+                worst = max(worst, max_err(a[ok], b[ok]) / max(1.0, float(b[ok].abs().max())))
+        return worst, int((~ok).sum()), int((~ok & k_bad).sum())
+
+    def per_problem(pairs):
+        errs = []
+        for a, b in pairs:
+            a, b = a.flatten(1).double(), b.flatten(1).double()
+            if b.shape[1]:
+                fin = torch.isfinite(a).all(1) & torch.isfinite(b).all(1)
+                e = (a - b).abs().amax(1) / b.abs().amax(1).clamp(min=1.0)
+                errs.append(torch.where(fin, e, torch.full_like(e, float("inf"))))
+        return torch.stack(errs).amax(0).cpu().numpy()
+
+    def plain(fn, *args):
+        """fn(*args) and the seconds it took, the stream drained around it."""
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*args)
+        torch.cuda.synchronize()
+        return out, time.perf_counter() - t0
+
+    fields = lambda g, v: [getattr(g, n) for n in g._fields] + [getattr(v, n) for n in v._fields]
 
     def held_b(knots, mu, refine_steps=1):
         g, v = orig_b(knots, mu, refine_steps)
-        gp, vp = FR.backward_sweep_batched_ref(knots, mu, refine_steps)
-        log.append(("K1", rel([(getattr(g, n), getattr(gp, n)) for n in g._fields]
-                              + [(getattr(v, n), getattr(vp, n)) for n in v._fields])))
+        (gp, vp), secs = plain(FR.backward_sweep_batched_ref, knots, mu, refine_steps)
+        entry = ("K1", *rel(zip(fields(g, v), fields(gp, vp))), secs)
+        if backward_error:
+            eta, ratio = k1_backward_error(knots, mu, g, v)
+            entry += (dict(kernel=eta.cpu().numpy(), ratio=ratio.cpu().numpy(),
+                           nu=knots.R.shape[-1],
+                           plain=k1_backward_error(knots, mu, gp, vp, False)[0].cpu().numpy(),
+                           kp=per_problem(zip(fields(g, v), fields(gp, vp)))),)
+        log.append(entry)
         return g, v
 
     def held_f(gains, vms, x0, lbd0):
         out = orig_f(gains, vms, x0, lbd0)
-        log.append(("K2", rel(zip(out, FR.forward_sweep_batched_ref(gains, vms, x0, lbd0)))))
+        ref, secs = plain(FR.forward_sweep_batched_ref, gains, vms, x0, lbd0)
+        entry = ("K2", *rel(zip(out, ref)), secs)
+        if backward_error:
+            entry += (dict(kernel=k2_backward_error(gains, vms, x0, lbd0, out).cpu().numpy(),
+                           plain=k2_backward_error(gains, vms, x0, lbd0, ref).cpu().numpy(),
+                           kp=per_problem(zip(out, ref))),)
+        log.append(entry)
         return out
 
     held_b.launches, held_f.launches = orig_b.launches, orig_f.launches
@@ -1507,14 +1681,18 @@ def quadrotor_report(q) -> dict:
     check(bool(f["conv"].all()), "every quadrotor scenario converges through the kernels")
     check(k1 == k2 >= max(iters) >= 1, "quadrotor kernel launch counts")
     held = q["held"]
-    worst = {k: max((e for n, e in held if n == k), default=float("nan")) for k in ("K1", "K2")}
+    worst = {k: max((e for n, e, *_ in held if n == k), default=float("nan"))
+             for k in ("K1", "K2")}
     print(f"quadrotor: the fused solve's {len(held)} kernel calls held to the plain versions on "
           f"the same inputs: max over calls of max|d|/max(1, max|plain|) K1 {worst['K1']:.3e}, "
           f"K2 {worst['K2']:.3e}")
-    check(sum(n == "K1" for n, _ in held) == k1 and sum(n == "K2" for n, _ in held) == k2,
+    check(sum(n == "K1" for n, *_ in held) == k1 and sum(n == "K2" for n, *_ in held) == k2,
           "every quadrotor kernel call held to its plain version")
     check(worst["K1"] <= 1e-4 and worst["K2"] <= 1e-4,
           "the quadrotor's K1 and K2 calls agree with their plain versions to 1e-4")
+    broken = sum(c for _, _, c, *_ in held)
+    check(broken == 0, f"the plain versions' outputs are finite in every quadrotor problem-call "
+          f"({broken} are not)")
     gap = lambda a, b: np.abs(a - b) / np.maximum(np.abs(b), 1.0)
     g_s, g_64, g_s64 = gap(f["cost"], sr["cost"]), gap(f["cost"], f64["cost"]), gap(
         sr["cost"], f64["cost"])
@@ -1587,6 +1765,390 @@ def examples_phase(pipes):
     return launches
 
 
+# Slice 6: the legged and centroidal family. (a) The solo-12 jump
+# (examples/solo_jump.py: N = 45, dt = 0.02, a flight phase with every
+# contact off; nx = 37, ndx = 36, nu = 12, nc = 0) as 16 perturbed
+# scenarios in float32 through K1 (widths read at launch) and K2 (nx read
+# at launch), against the serial path in float32 and in float64; (b) the
+# humanoid squat (kinodynamics) and the centroidal CoM shift in float64 on
+# the card against the CPU, and the minimum-norm static balance of the
+# two wide systems; (c) the jump through the spec path, exported, sent
+# through JSON and rebuilt on the card.
+JUMP_BATCH = 16
+JUMP_TIMED_ITERS = 10  # iterations of each unheld solve timed for the jump's wall
+BACKWARD_TOL = 1e-5  # a knot's backward error in float32 (the plain version's ~3e-7)
+PIVOT_TOL = 1e-5  # λmin / λmax of R̂ at which a float32 step may break down
+LEGGED_EXAMPLES = {  # name → (module, ProxDDPSettings of the example's main)
+    "humanoid_squat": (TH, dict(tol=1e-4, mu_init=1e-2, max_iters=100, cost_scale=1e-2)),
+    "centroidal": (TC, dict(tol=1e-6, mu_init=1e-1, max_iters=200)),
+}
+
+
+def k_jump_check(dev):
+    """K1 (its instantiation for widths read at launch) and K2 at the
+    jump's widths, B = 16, N = 45, nx = 36, nu = 12, nc = 0: against their
+    plain versions under the gate 1e-4·max|·| at µ = 1e-2 (the solve's
+    µ_init) and 1e-4, then timed beside their bounds."""
+    Bsz, N, nx, nu, nc = JUMP_BATCH, 45, 36, 12, 0
+    variant = FR.backward_variant(nx, nu, nc)
+    check(variant == "runtime", f"the jump's widths take K1's runtime instantiation: {variant}")
+    lq = lqr_from_numpy(random_lq_arrays(np.random.default_rng(17), Bsz, N, nx, nu, nc),
+                        device=dev, dtype=torch.float32)
+    knots = knots_of(lq)
+    gen = torch.Generator(device=dev).manual_seed(17)
+    x0 = torch.randn(Bsz, nx, device=dev, generator=gen)
+    l0 = torch.randn(Bsz, nx, device=dev, generator=gen)
+    errs_b, errs_f = {}, {}
+    for mu_val in (1e-2, 1e-4):
+        mu = torch.full((Bsz,), mu_val, device=dev)
+        _, gp, vp, e1 = check_k1(f"jump mu={mu_val:g}", knots, mu)
+        e2 = check_k2(f"jump mu={mu_val:g}", gp, vp, x0, l0, "rel", set())
+        errs_b[mu_val], errs_f[mu_val] = e1, e2
+        print(f"kernels K1 jump widths B={Bsz} N={N} nx={nx} nu={nu} nc={nc} mu={mu_val:g} "
+              f"({variant}): max abs err {json.dumps(e1)}; K2 "
+              f"({'x'.join(map(str, FR.forward_plan(gp, vp)))}) max abs err {json.dumps(e2)}")
+    mu = torch.full((Bsz,), 1e-2, device=dev)
+    gp, vp = FR.backward_sweep_batched_ref(knots, mu)
+    L = N + 1
+    k1_ms = cuda_ms(lambda: FR.backward_sweep_batched(knots, mu), 20)
+    k1_plain = cuda_ms(lambda: FR.backward_sweep_batched_ref(knots, mu), 3)
+    k2_ms = cuda_ms(lambda: FR.forward_sweep_batched(gp, vp, x0, l0), 20)
+    k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
+    b1, by1 = bound_ms(*backward_cost(Bsz, L, nx, nu, nc, 1))
+    b2, by2 = bound_ms(*forward_cost(Bsz, L, nx, nu, nc))
+    print(f"jump widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, bound "
+          f"{b1:.4f} ms by {by1}, {k1_ms / b1:.1f}x; {k1_ms / L * 1e3:.2f} us per knot; "
+          f"{FR.backward_blocks_per_sm(nx, nu, nc)} blocks per SM); K2 {k2_ms:.4f} ms (plain "
+          f"{k2_plain:.3f} ms, bound {b2:.4f} ms by {by2}, {k2_ms / b2:.1f}x)")
+    return [
+        dict(name="riccati_backward_solo", route="cuda",
+             source="aligator_tpu_torch/csrc/riccati_backward.cu",
+             replaces="aligator_tpu/gar/pallas_riccati.py:225",
+             instantiation="riccati_backward_kernel, widths read at launch", path="solo_jump",
+             max_abs_err=max(max(e.values()) for e in errs_b.values()), ms=k1_ms,
+             plain_ms=k1_plain, bound_ms=b1, bound_by=by1, library_ms=None),
+        dict(name="riccati_forward_solo", route="cuda",
+             source="aligator_tpu_torch/csrc/riccati_forward.cu",
+             replaces="aligator_tpu/gar/pallas_riccati.py:549", path="solo_jump",
+             max_abs_err=max(max(e.values()) for e in errs_f.values()), ms=k2_ms,
+             plain_ms=k2_plain, bound_ms=b2, bound_by=by2, library_ms=None),
+    ]
+
+
+def jump_solves(dev, part: str) -> dict:
+    """(a) The jump's 16 scenarios, as numpy arrays and numbers; each part
+    runs in a child process of its own. ``"held"``: in float32 through the
+    fused kernels, K1 and K2 launches counted around that solve alone and
+    each call held to the plain versions and checked knot by knot, the base
+    heights of every scenario, then the wall of three solves unheld, capped
+    at ``JUMP_TIMED_ITERS`` iterations, and one traced derivative pass;
+    ``"serial"`` and ``"f64"``: the same scenarios through the serial path
+    in float32 and in float64."""
+    full_f32_matmuls()
+    problem, model, _ = TJ.create_jump_problem(dtype=torch.float32, device=dev)
+    prob16 = walk_scenarios(problem, model, JUMP_BATCH)
+
+    def host(r):
+        z0, apex, zN = (v.double().cpu().numpy() for v in TJ.base_heights(r.xs))
+        return dict(conv=r.conv.cpu().numpy(), iters=r.num_iters.cpu().numpy(),
+                    cost=r.traj_cost.double().cpu().numpy(), prim=r.prim_infeas.cpu().numpy(),
+                    dual=r.dual_infeas.cpu().numpy(), finite=bool(torch.isfinite(r.xs).all()),
+                    shape=tuple(r.xs.shape), z0=z0, apex=apex, zN=zN)
+
+    def timed(p, settings):
+        t0 = time.perf_counter()
+        r = solve(p, settings)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    fused = ProxDDPSettings(lq_solver="pallas", **TJ.SETTINGS)
+    if part == "serial":
+        r, secs = timed(prob16, ProxDDPSettings(lq_solver="serial", **TJ.SETTINGS))
+        return dict(serial=host(r), serial_s=secs)
+    if part == "f64":
+        p64 = TJ.create_jump_problem(dtype=torch.float64, device=dev)[0]
+        r, secs = timed(p64.replace_x0(prob16.x0.double()),
+                        ProxDDPSettings(lq_solver="serial", **TJ.SETTINGS))
+        return dict(f64=host(r), f64_s=secs)
+    reset_counts()
+    with kernels_held_to_plain([], backward_error=True) as held:
+        res, secs = timed(prob16, fused)
+    out = dict(held_s=secs, plain_s=sum(e[4] for e in held), counts=read_counts(),
+               fused=host(res), held=held,
+               N=problem.nsteps, nx=problem.space.nx, ndx=problem.ndx, nu=problem.nu,
+               nc=problem.nc)
+    capped = ProxDDPSettings(lq_solver="pallas",
+                             **{**TJ.SETTINGS, "max_iters": JUMP_TIMED_ITERS})
+    runs = [timed(prob16, capped) for _ in range(3)]
+    out["timed_s"] = [secs for _, secs in runs]
+    out["timed_iters"] = [int(r.num_iters.max()) for r, _ in runs]
+    xs, us = xs_default_init(prob16), us_default_init(prob16)
+    compute_derivatives(prob16, xs, us)
+    _, kern, busy, _ = trace_device(lambda: compute_derivatives(prob16, xs, us))
+    out["deriv_kernels"], out["deriv_busy_ms"] = len(kern), busy / 1e3
+    return out
+
+
+def _jump_child(conn, device, part) -> None:
+    conn.send(jump_solves(torch.device(device), part))
+    conn.close()
+
+
+def legged_solves(device) -> dict:
+    """(b) The squat and the centroidal shift built and solved on
+    ``device`` in float64, and the static balance of the two wide systems:
+    name → numpy arrays and numbers."""
+    out = {}
+    for name, (mod, settings) in LEGGED_EXAMPLES.items():
+        create = next(getattr(mod, n) for n in dir(mod) if n.startswith("create_"))
+        built = create(device=device)
+        problem = built[0] if isinstance(built, tuple) else built
+        t0 = time.perf_counter()
+        res = solve(problem, ProxDDPSettings(**settings))
+        if device != "cpu":
+            torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        if name == "humanoid_squat":
+            outcome = {"dip": TH.com_dip(built[1], res.xs, built[2])}
+        else:
+            margin, fz_min = TC.cone_margin(res.us)
+            outcome = {"cone_margin": margin, "min_fz": fz_min,
+                       "com_N": res.xs[-1, :3].tolist()}
+        out[name] = (res.xs.cpu().numpy(), res.us.cpu().numpy(), bool(res.conv),
+                     int(res.num_iters), secs, outcome)
+    for robot in ("quadruped", "humanoid"):
+        if robot == "quadruped":
+            model = build_quadruped(device=device)
+            q0 = quadruped_standing(model)
+            feet = tuple((f, 3) for f in TJ.FEET)
+        else:
+            model = build_humanoid(device=device)
+            q0 = humanoid_half_sitting(model, device=device)
+            feet = (("left_sole", 6), ("right_sole", 6))
+        cs = anchor_at_configuration(model, make_contact_set(model, feet, device=device), q0)
+        act = floating_base_actuation(model, device=device)
+        u, lam = underactuated_constrained_inverse_dynamics(model, cs, act, q0,
+                                                            q0.new_zeros(model.nv))
+        out[f"balance {robot}"] = (u.cpu().numpy(), lam.cpu().numpy(), act.shape[0],
+                                   act.shape[1] + lam.shape[0])
+    return out
+
+
+def _legged_child(conn, device) -> None:
+    torch.set_num_threads(1)
+    conn.send(legged_solves(device if device == "cpu" else torch.device(device)))
+    conn.close()
+
+
+# (a) in three children beside the solvers phase (each solve is bound by
+# its host thread): the held solve and the two references. A solve is 200
+# iterations (ROADMAP C13); three more for a median of walls do not fit the
+# run's time limit.
+LEGGED_CHILDREN = {
+    "jump held": (_jump_child, ("cuda", "held")),
+    "jump serial": (_jump_child, ("cuda", "serial")),
+    "jump f64": (_jump_child, ("cuda", "f64")),
+    "legged cpu": (_legged_child, ("cpu",)),
+    "legged card": (_legged_child, ("cuda",)),
+}
+
+
+def same_problem(a, b) -> bool:
+    """Equal horizon, widths, constraint stacks and x0."""
+    return ((a.nsteps, a.ndx, a.nu, a.nc, a.nc_term, a.constraint_dims)
+            == (b.nsteps, b.ndx, b.nu, b.nc, b.nc_term, b.constraint_dims)
+            and [type(s).__name__ for s in a.constraint_sets]
+            == [type(s).__name__ for s in b.constraint_sets]
+            and bool(torch.equal(a.x0, b.x0)))
+
+
+def jump_spec_check(dev) -> None:
+    """(c) The jump in float64 on the card, exported by ``problem_to_spec``
+    (the quadruped as a URDF document), sent through JSON and rebuilt by
+    ``problem_from_spec`` on the card: the same problem, the same contact
+    schedule and landing weights, and one derivative pass at x0 and at a
+    seeded trajectory within 1e-12·max(1, max|·|)."""
+    direct, model, _ = TJ.create_jump_problem(dtype=torch.float64, device=dev)
+    model_spec = {"type": "urdf", "path": model_to_urdf(model, "solo")}
+    t0 = time.perf_counter()
+    text = json.dumps(problem_to_spec(direct, model_spec=model_spec))
+    rebuilt = problem_from_spec(text, dtype=torch.float64, device=dev)
+    secs = time.perf_counter() - t0
+    check(same_problem(direct, rebuilt), "the spec-rebuilt jump is the same problem")
+    check(torch.equal(direct.dynamics.ode.contacts.active, rebuilt.dynamics.ode.contacts.active),
+          "the spec-rebuilt jump has the same contact schedule")
+    check(all(torch.equal(a.expand_as(b), b) for a, b in
+              zip(rebuilt.cost.weights, direct.cost.weights)),
+          "the spec-rebuilt jump has the same landing weights")
+    gen = torch.Generator(device=dev).manual_seed(19)
+    x0 = direct.x0[None]
+    seeded = direct.space.integrate(
+        x0.expand(direct.nsteps + 1, -1),
+        0.05 * torch.randn(direct.nsteps + 1, direct.ndx, device=dev, dtype=torch.float64,
+                           generator=gen))
+    xs = torch.stack([x0.expand(direct.nsteps + 1, -1), seeded])
+    us = torch.stack([torch.zeros(direct.nsteps, direct.nu, device=dev, dtype=torch.float64),
+                      torch.randn(direct.nsteps, direct.nu, device=dev, dtype=torch.float64,
+                                  generator=gen)])
+    two = lambda p: p.replace_x0(p.x0.expand(2, -1))
+    d1, d2 = compute_derivatives(two(direct), xs, us), compute_derivatives(two(rebuilt), xs, us)
+    err = max(max_err(getattr(d2, n), getattr(d1, n))
+              / max(1.0, float(getattr(d1, n).abs().max()) if getattr(d1, n).numel() else 0.0)
+              for n in d1._fields)
+    print(f"legged spec: the jump exported to {len(text)} bytes of JSON and rebuilt on the card "
+          f"in {secs:.2f} s; same problem; derivative pass at x0 and a seeded trajectory, max "
+          f"over outputs of max|d|/max(1, max|.|) {err:.3e}")
+    check(err <= 1e-12, "the spec-rebuilt jump's derivative pass to 1e-12")
+
+
+def held_stats(held, name: str) -> dict:
+    """Kernel ``name``'s held calls (``kernels_held_to_plain(...,
+    backward_error=True)``) summed up: the knots checked (finite) and the
+    largest backward error of the kernel's and of the plain version's, and
+    the kernel's over its bound; the problem-calls whose outputs are not
+    finite, by side; for K1 the largest λmin / λmax of R̂ at a breakdown of
+    the kernel's (its last knot, in time, that is not finite); and the
+    agreement of kernel and plain version per problem-call (within 1e-4,
+    worst where both are finite)."""
+    ent = [e[5] for e in held if e[0] == name]
+    ek, ep = (np.stack([e[k] for e in ent]) for k in ("kernel", "plain"))  # (calls, B, L)
+    kp = np.stack([e["kp"] for e in ent])
+    kfin, pfin = ~np.isnan(ek).any(2), ~np.isnan(ep).any(2)
+    top = lambda a: float(a.max()) if a.size else 0.0
+    out = dict(
+        calls=len(ent), knot_calls=int(ek.size), checked=int((~np.isnan(ek)).sum()),
+        eta_max=top(ek[~np.isnan(ek)]), eta_plain_max=top(ep[~np.isnan(ep)]),
+        problem_calls=int(kfin.size),
+        both_bad=int((~kfin & ~pfin).sum()), plain_only_bad=int((kfin & ~pfin).sum()),
+        kernel_only_bad=int((~kfin & pfin).sum()), kp_within=int((kp <= 1e-4).sum()),
+        kp_max=top(kp[np.isfinite(kp)]))
+    chk, bound = ~np.isnan(ek), np.full_like(ek, BACKWARD_TOL)
+    if name == "K1":
+        ratio = np.stack([e["ratio"] for e in ent])
+        with np.errstate(divide="ignore", invalid="ignore"):
+            kappa = np.where(ratio > 0, 1.0 / ratio, np.inf)
+        # a step through R̂⁻¹ in float32 is good to ~nu·u·κ(R̂), u = 2⁻²⁴
+        bound = np.maximum(bound, ent[0]["nu"] * 2.0 ** -24 * kappa)
+        L = ek.shape[2]
+        t_bad = L - 1 - np.argmax(np.isnan(ek)[:, :, ::-1], axis=2)  # last knot not finite
+        piv = np.take_along_axis(ratio, t_bad[..., None], 2)[..., 0][~kfin]
+        out.update(pivot_max=top(piv), pivot_kernel_only_max=top(
+                       np.take_along_axis(ratio, t_bad[..., None], 2)[..., 0][~kfin & pfin]),
+                   eta_max_kappa_le_1e3=top(ek[chk & (kappa <= 1e3)]),
+                   kappa_max_checked=top(kappa[chk & np.isfinite(kappa)]))
+    out["eta_over_bound_max"] = top(ek[chk] / bound[chk])
+    return out
+
+
+def jump_report(q) -> dict:
+    """Prints and checks (a); returns K1's and K2's launches in the fused
+    solve."""
+    f, sr, f64 = q["fused"], q["serial"], q["f64"]
+    k1, k2 = q["counts"]["riccati_backward"], q["counts"]["riccati_forward"]
+    iters = f["iters"].tolist()
+    print(f"legged: solo jump N={q['N']} nx={q['nx']} ndx={q['ndx']} nu={q['nu']} nc={q['nc']} "
+          f"B={JUMP_BATCH} f32; fused solve ({q['held_s']:.1f} s, each kernel call held to its "
+          f"plain version, {q['plain_s']:.1f} s of it, and checked knot by knot): conv "
+          f"{f['conv'].astype(int).tolist()}, iterations {iters} (batch {max(iters)}), prim max "
+          f"{float(f['prim'].max()):.3e}, dual max {float(f['dual'].max()):.3e}, K1 launches "
+          f"{k1}, K2 launches {k2}")
+    check(f["shape"] == (JUMP_BATCH, q["N"] + 1, q["nx"]) and f["finite"],
+          "jump xs finite, of the expected shape")
+    check(k1 == k2 >= max(iters) >= 1, "jump kernel launch counts")
+    held = q["held"]
+    check(sum(n == "K1" for n, *_ in held) == k1 and sum(n == "K2" for n, *_ in held) == k2,
+          "every jump kernel call held to its plain version")
+    # The jump's float32 LQ chain is ill-conditioned: the kernel and the
+    # plain version, both float32, part far and break down on the same
+    # inputs, as the JAX kernel does (ROADMAP C13). So their agreement is
+    # printed, and each finite knot of each call is held instead to its own
+    # step: its backward error in float64 from its own next cost-to-go, at
+    # float32 rounding for a correct step, up to κ(R̂) where R̂ is near
+    # singular.
+    for name in ("K1", "K2"):
+        st = held_stats(held, name)
+        print(f"legged: jump {name} held calls: {json.dumps(st)}")
+        check(st["eta_over_bound_max"] <= 1.0, f"every finite knot of the jump's {name} calls "
+              f"has a backward error within max({BACKWARD_TOL:g}, nu·u·κ(R̂)) (K1) or "
+              f"{BACKWARD_TOL:g} (K2): largest {st['eta_max']:.3e}, {st['eta_over_bound_max']:.3f} "
+              f"of its bound; the plain version's {st['eta_plain_max']:.3e}; {st['checked']} of "
+              f"{st['knot_calls']} knot-calls checked")
+    st = held_stats(held, "K1")
+    check(st["pivot_max"] <= PIVOT_TOL, f"K1 breaks down on the jump only where R̂ is "
+          f"numerically singular (λmin/λmax ≤ {PIVOT_TOL:g} at each breakdown; largest "
+          f"{st['pivot_max']:.3e})")
+    gap = lambda a, b: np.abs(a - b) / np.maximum(np.abs(b), 1.0)
+    g_s, g_64 = gap(f["cost"], sr["cost"]), gap(f["cost"], f64["cost"])
+    print(f"legged: jump serial f32 ({q['serial_s']:.1f} s) conv "
+          f"{sr['conv'].astype(int).tolist()}, iterations {sr['iters'].tolist()}; serial f64 "
+          f"({q['f64_s']:.1f} s) conv {f64['conv'].astype(int).tolist()}, iterations "
+          f"{f64['iters'].tolist()}")
+    print(f"legged: jump traj cost fused f32 {np.round(f['cost'], 6).tolist()}, serial f32 "
+          f"{np.round(sr['cost'], 6).tolist()}, serial f64 {np.round(f64['cost'], 6).tolist()}")
+    print(f"legged: jump traj cost diff (relative to max(1, |.|)) fused f32 vs serial f32 "
+          f"{[float('%.3e' % v) for v in g_s]} (median {float(np.median(g_s)):.3e}), fused f32 "
+          f"vs serial f64 {[float('%.3e' % v) for v in g_64]} (median "
+          f"{float(np.median(g_64)):.3e})")
+    # in float32 the batch stops unconverged at 200 iterations, in the JAX
+    # package too (ROADMAP C13): the costs of two unconverged iterates are
+    # printed, and the jump is gated on its outcome in every scenario
+    rise, drift = f["apex"] - f["z0"], np.abs(f["zN"] - f["z0"])
+    print(f"legged: jump base z per scenario: start {np.round(f['z0'], 4).tolist()}, apex "
+          f"{np.round(f['apex'], 4).tolist()}, end {np.round(f['zN'], 4).tolist()}; least rise "
+          f"{float(rise.min()):.4f} m (> 0.04), largest end drift {float(drift.max()):.4f} m "
+          f"(< 0.08)")
+    check(bool((rise > 0.04).all()), "every jump scenario rises more than 0.04 m")
+    check(bool((drift < 0.08).all()), "every jump scenario lands within 0.08 m of its start")
+    walls = q["timed_s"]
+    print(f"legged: fused solve of {JUMP_BATCH} jump scenarios unheld, capped at "
+          f"{JUMP_TIMED_ITERS} iterations ({q['timed_iters']}): wall s "
+          f"{[round(w, 2) for w in walls]} (median {float(np.median(walls)):.2f}, "
+          f"{float(np.median(walls)) / JUMP_TIMED_ITERS:.3f} s per iteration, beside the "
+          f"solvers phase); {max(iters)} iterations, K1 {k1} and K2 {k2} launches per "
+          f"solve; one compute_derivatives call at B={JUMP_BATCH}, N={q['N']}: "
+          f"{q['deriv_kernels']} device kernels, device busy {q['deriv_busy_ms']:.3f} ms")
+    return {"riccati_backward_solo": k1, "riccati_forward_solo": k2}
+
+
+def legged_phase(pipes) -> dict:
+    """(a) and (b) from their child processes, checked; returns K1's and
+    K2's launches in the jump's fused solve."""
+    t0 = time.perf_counter()
+    results = {}
+    for name in LEGGED_CHILDREN:
+        check(pipes[name].poll(1100), f"the {name} child process finished")
+        results[name] = pipes[name].recv()
+    print(f"legged: child results waited for {time.perf_counter() - t0:.1f} s")
+    launches = jump_report({**results["jump held"], **results["jump serial"],
+                            **results["jump f64"]})
+    cpu, card = results["legged cpu"], results["legged card"]
+    for name in LEGGED_EXAMPLES:
+        xs, us, conv, n_it, secs, out = card[name]
+        xs_c, us_c, conv_c, n_it_c, secs_c, out_c = cpu[name]
+        ex = float(np.abs(xs - xs_c).max()) / max(1.0, float(np.abs(xs_c).max()))
+        eu = float(np.abs(us - us_c).max()) / max(1.0, float(np.abs(us_c).max()))
+        print(f"legged: {name} f64: card conv {conv}, iterations {n_it}, {secs:.1f} s; CPU conv "
+              f"{conv_c}, iterations {n_it_c}, {secs_c:.1f} s; max|dxs| {ex:.3e}, max|dus| "
+              f"{eu:.3e} (relative to max(1, max|.|)); outcomes card {json.dumps(out)}, CPU "
+              f"{json.dumps(out_c)}")
+        check(conv and conv_c, f"{name} converges on the card and the CPU")
+        check(n_it == n_it_c, f"{name}: equal iterations on the card and the CPU")
+        check(ex <= 1e-9 and eu <= 1e-9, f"{name} card vs CPU to 1e-9")
+    check(abs(card["humanoid_squat"][5]["dip"] - TH.DIP) < 5e-3,
+          "the squat dips its CoM by 0.05 m within 5 mm")
+    check(card["centroidal"][5]["cone_margin"] <= TC.MU,
+          "the centroidal shift keeps its forces in the friction cone")
+    for robot in ("quadruped", "humanoid"):
+        u, lam, rows, cols = card[f"balance {robot}"]
+        u_c, lam_c = cpu[f"balance {robot}"][:2]
+        sol, sol_c = np.concatenate([u, lam]), np.concatenate([u_c, lam_c])
+        err = float(np.abs(sol - sol_c).max()) / max(1.0, float(np.abs(sol_c).max()))
+        print(f"legged: static balance of the {robot} ({rows} x {cols} system, minimum norm) "
+              f"card vs CPU max|d|/max(1, max|.|) {err:.3e}")
+        check(err <= 1e-10, f"the {robot}'s static balance on the card equals the CPU's")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -1617,11 +2179,19 @@ def main() -> int:
     # K1 and K2 at the quadrotor's widths alone on the card; then the
     # examples' solves in child processes beside the solvers phase
     kernels += k_quad_check(dev)
+    # the legged path: K1 and K2 at the jump's widths and the spec path alone
+    # on the card; then its solves in child processes beside the others
+    kernels += k_jump_check(dev)
+    jump_spec_check(dev)
     t0 = time.perf_counter()
-    with spawned(EXAMPLE_CHILDREN) as example_pipes:
+    with spawned({**EXAMPLE_CHILDREN, **LEGGED_CHILDREN}) as pipes:
         solvers_phase(dev, walk_cost)
-        launches.update(examples_phase(example_pipes))
-    print(f"solvers and examples phases: {time.perf_counter() - t0:.1f} s")
+        launches.update(examples_phase(pipes))
+        t1 = time.perf_counter()
+        launches.update(legged_phase(pipes))
+        print(f"legged phase: {time.perf_counter() - t1:.1f} s after the examples phase, "
+              f"{time.perf_counter() - t0:.1f} s from the children's start")
+    print(f"solvers, examples and legged phases: {time.perf_counter() - t0:.1f} s")
     print(f"all phases: {time.perf_counter() - t_run:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
