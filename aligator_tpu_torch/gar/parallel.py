@@ -1,5 +1,5 @@
 """Parallel proximal Riccati solver by partitioned condensing (port of
-``aligator_tpu.gar.parallel`` on one device; ``lq_solver="parallel"``).
+``aligator_tpu.gar.parallel``; ``lq_solver="parallel"``).
 
 The horizon is split into J legs. Each leg but the last is parameterized
 by its boundary costate θ (Gx = Aᵀ, Gu = Bᵀ, γ = f on its last knot) and
@@ -9,15 +9,25 @@ x_beg_{J−1}] then ties the legs together, and each leg rolls forward from
 its solved entry state. The legs of all B problems run as one batch of
 B·J through ``gar.riccati.backward_sweep`` / ``forward_sweep``, so a
 solve takes about N/J + J dependent steps where the serial sweep takes N.
-Legs over several devices (``lq_mesh``) are ROADMAP A19b.
+
+With a ``distributed.SolverMesh`` the legs are split over the processes
+of its "t" axis, as the JAX package splits them over devices with
+``shard_map``: rank r of a t group of T runs the sweeps of legs
+[r·J/T, (r+1)·J/T) of every problem, the legs' first-knot summaries are
+all-gathered and the condensed system solved on every rank, replicated,
+and the forward sweep's outputs are all-gathered back, so that every rank
+returns what the unsharded solve returns.
 """
 
 from __future__ import annotations
 
 import torch
 
+from aligator_tpu_torch.distributed import all_gather_cat
 from aligator_tpu_torch.gar.lqr_problem import LQRProblem
 from aligator_tpu_torch.gar.riccati import (
+    CostToGo,
+    Gains,
     Knot,
     backward_sweep,
     batch_mu,
@@ -61,10 +71,12 @@ def _pad_problem(problem: LQRProblem, num_legs: int) -> LQRProblem:
     )
 
 
-def _theta_augmented_legs(problem: LQRProblem, num_legs: int) -> Knot:
+def _theta_augmented_legs(problem: LQRProblem, num_legs: int,
+                          owned: slice = slice(None)) -> Knot:
     """Split the (padded) horizon into J legs of L = (N+1)/J knots and put
     the boundary-costate parameterization (θ-width nx) on the last knot
-    of each leg but the last → knots shaped (B·J, L, ...)."""
+    of each leg but the last → the ``owned`` legs of every problem, knots
+    shaped (B·J_owned, L, ...), problem-major."""
     J = num_legs
     N1 = problem.horizon + 1
     assert N1 % J == 0, "call _pad_problem first"
@@ -79,7 +91,9 @@ def _theta_augmented_legs(problem: LQRProblem, num_legs: int) -> Knot:
         Gth=problem.Q.new_zeros((Bsz, N1, nx, nx)),
         Gv=problem.Q.new_zeros((Bsz, N1, problem.nc, nx)),
     )
-    return tree_map(lambda a: a.reshape((Bsz * J, L) + a.shape[2:]), knots)
+    return tree_map(
+        lambda a: a.reshape((Bsz, J, L) + a.shape[2:])[:, owned].reshape((-1, L) + a.shape[2:]),
+        knots)
 
 
 def _condensed_blocks(problem: LQRProblem, summ, num_legs: int):
@@ -103,7 +117,8 @@ def _condensed_blocks(problem: LQRProblem, summ, num_legs: int):
 
 
 @named_scope("gar.parallel.solve")
-def parallel_solve(problem: LQRProblem, mueq, num_legs: int, refine_steps: int = 1,
+def parallel_solve(problem: LQRProblem, mueq, num_legs: int, mesh=None,
+                   axis_name: str = "t", refine_steps: int = 1,
                    condensed_refine: int = 2, return_gains: bool = False):
     """Solve by partitioned condensing over ``num_legs`` legs; uneven
     horizons are padded with decoupled knots and the outputs cut back.
@@ -112,16 +127,28 @@ def parallel_solve(problem: LQRProblem, mueq, num_legs: int, refine_steps: int =
     whose stage-0 feedback is *collapsed*: the boundary-costate feedback
     Kth is folded into K through the condensed system's sensitivity
     ∂θ₀/∂x₀ = −D̃₂⁻¹·Vxt₀ᵀ, an MPC-ready (kff, K) at the deployed stage.
-    ``mueq`` is a scalar or (B,)."""
+    ``mueq`` is a scalar or (B,).
+
+    With ``mesh`` (a ``distributed.SolverMesh``) the legs are split over
+    ``mesh``'s ``axis_name`` group, whose ranks must all pass the same
+    problem; ``num_legs`` must be a multiple of the group's size."""
     J = num_legs
     Bsz, nx, nc0 = problem.batch, problem.nx, problem.nc0
     N1 = problem.horizon + 1
-    mu = batch_mu(mueq, Bsz, problem.Q).repeat_interleave(J)
+    T, rank = (1, 0) if mesh is None else (mesh.shape[axis_name], mesh.coords[axis_name])
+    if J % T != 0:
+        raise ValueError(f"num_legs={J} is not a multiple of the size {T} of the mesh "
+                         f"axis {axis_name!r}")
+    Jo = J // T  # legs of each problem that this rank sweeps
+    owned = slice(rank * Jo, (rank + 1) * Jo)
+    gather = ((lambda pieces: pieces) if mesh is None
+              else (lambda pieces: all_gather_cat(pieces, mesh, axis_name)))
+    mu = batch_mu(mueq, Bsz, problem.Q).repeat_interleave(Jo)
 
     padded = _pad_problem(problem, J)
-    legs = _theta_augmented_legs(padded, J)
+    legs = _theta_augmented_legs(padded, J, owned)
     gains, vms = backward_sweep(legs, mu, refine_steps)
-    summ = tree_map(lambda a: a[:, 0].reshape((Bsz, J) + a.shape[2:]), vms)
+    summ = CostToGo(*gather([a[:, 0].reshape((Bsz, Jo) + a.shape[2:]) for a in vms]))
 
     diag, sup, rhs = _condensed_blocks(padded, summ, J)
     sol = block_tridiag_solve_refined(diag, sup, rhs, refine_steps=condensed_refine)
@@ -131,15 +158,16 @@ def parallel_solve(problem: LQRProblem, mueq, num_legs: int, refine_steps: int =
     lbd_begs = torch.stack([lbd0] + [sol[2 * i] for i in range(1, J)], dim=1)
     thetas = torch.stack([sol[2 * (i + 1)] for i in range(J - 1)]
                          + [lbd0.new_zeros((Bsz, nx))], dim=1)
-    flat = lambda a: a.reshape((Bsz * J,) + a.shape[2:])
+    flat = lambda a: a[:, owned].reshape((Bsz * Jo,) + a.shape[2:])
     xs, us, vs, lbds = forward_sweep(gains, vms, flat(x_begs), flat(lbd_begs),
                                      flat(thetas))
-    unleg = lambda a: a.reshape((Bsz, J * a.shape[1]) + a.shape[2:])[:, :N1]
-    out = (unleg(xs), unleg(us), unleg(vs), unleg(lbds))
+    # (B·Jo, L, ...) → (B, Jo·L, ...), gathered to (B, J·L, ...), cut to N+1
+    unleg = lambda a: a.reshape((Bsz, Jo * a.shape[1]) + a.shape[2:])
+    out = tuple(a[:, :N1] for a in gather([unleg(a) for a in (xs, us, vs, lbds)]))
     if not return_gains:
         return out
 
-    flat_gains = tree_map(unleg, gains)
+    flat_gains = Gains(*(a[:, :N1] for a in gather([unleg(a) for a in gains])))
     if J > 1:
         dtil = block_tridiag_schur(diag, sup)
         # ∂θ₀/∂x₀ from the up-looking elimination
@@ -152,11 +180,14 @@ def parallel_solve(problem: LQRProblem, mueq, num_legs: int, refine_steps: int =
     return out, flat_gains
 
 
-def make_parallel_solver(num_legs: int, refine_steps: int = 1, condensed_refine: int = 2):
-    """``solve(problem, mueq) -> (xs, us, vs, lbdas)`` over ``num_legs`` legs."""
+def make_parallel_solver(num_legs: int, mesh=None, axis_name: str = "t",
+                         refine_steps: int = 1, condensed_refine: int = 2):
+    """``solve(problem, mueq) -> (xs, us, vs, lbdas)`` over ``num_legs``
+    legs, split over ``mesh``'s ``axis_name`` group when a mesh is given."""
 
     def solve(problem: LQRProblem, mueq):
-        return parallel_solve(problem, mueq, num_legs, refine_steps=refine_steps,
+        return parallel_solve(problem, mueq, num_legs, mesh=mesh, axis_name=axis_name,
+                              refine_steps=refine_steps,
                               condensed_refine=condensed_refine)
 
     return solve

@@ -25,8 +25,11 @@ reads), "parallel" with ``lq_num_legs``, "stagedense", "assoc" and
 "dense_oracle"; ``riccati_refine``, ``cost_scale``, ``lq_refine_full``;
 ``verbose``, ``record_history``, ``record_iterates``, ``callback`` (for an
 unbatched solve) and ``debug`` (``solve_checked``), whose host syncs are
-taken only when the setting is on. Legs over several devices (``lq_mesh``,
-``lq_axis_name``) raise ``NotImplementedError`` naming ROADMAP A19b.
+taken only when the setting is on. The parallel solver's legs are split
+over processes by ``lq_mesh`` (a ``distributed.SolverMesh``) along
+``lq_axis_name``: every rank of that group then receives the same gathered
+LQ direction, and its evaluations and derivatives are deterministic, so
+the ranks make the same loop decisions and end bitwise equal.
 """
 
 from __future__ import annotations
@@ -122,7 +125,7 @@ class ProxDDPSettings:
     # serial|parallel|stagedense|dense_oracle|assoc|pallas (the fused CUDA kernels)
     lq_solver: str = "serial"
     lq_num_legs: int = 0  # legs of the parallel solver; 0 = serial
-    lq_mesh: Any = None
+    lq_mesh: Any = None  # distributed.SolverMesh: the parallel solver's legs over "t"
     lq_axis_name: str = "t"
 
 
@@ -144,10 +147,6 @@ def _check_supported(s: ProxDDPSettings) -> None:
             "nonlinear rollout requires an LQ solver with gains "
             "(serial/pallas/assoc/stagedense); the parallel solver is restricted to "
             "linear rollouts, and the dense oracle forms no gains")
-    if s.lq_mesh is not None or s.lq_axis_name != "t":
-        raise NotImplementedError(
-            "not ported yet: lq_mesh / lq_axis_name: legs over several devices "
-            "(ROADMAP A19b)")
     if s.sa_strategy not in ("armijo", "nonmonotone", "filter"):
         raise ValueError(f"unknown sa_strategy {s.sa_strategy!r}")
     if s.rollout_type not in ("linear", "nonlinear"):
@@ -438,7 +437,8 @@ def _solve_lq_once(s: ProxDDPSettings, lq: LQRProblem, mu):
     none."""
     with torch.profiler.record_function("proxddp.riccati"):
         if _is_parallel(s):
-            return parallel_solve(lq, mu, max(s.lq_num_legs, 2),
+            return parallel_solve(lq, mu, max(s.lq_num_legs, 2), mesh=s.lq_mesh,
+                                  axis_name=s.lq_axis_name,
                                   refine_steps=s.riccati_refine), None
         if s.lq_solver == "dense_oracle":
             return dense_solve(lq, mu), None

@@ -40,7 +40,13 @@ float64), against the serial path, a float64 solve and the jump's
 outcome; the humanoid squat (kinodynamics) and the centroidal CoM shift
 in float64 on the card against the CPU, with the minimum-norm static
 balance of the quadruped and the humanoid; and the jump exported as a
-JSON spec and rebuilt on the card (child processes too). It
+JSON spec and rebuilt on the card (child processes too); then slice 7,
+solves over several processes on the one card (``distributed_phase``,
+inside the solvers phase): the lqr56 problem in float64 with its
+Riccati legs over two Gloo ranks, the bench solve as a batch over two
+ranks through K1 and K2, both axes over four ranks, and one NCCL rank,
+each against the same solves in one process, the ranks of each leg group
+bitwise equal. It
 checks the results and prints one JSON line of kernel reports and a
 final status line. Any
 failed check raises, and the script exits non-zero (the one exception,
@@ -55,13 +61,16 @@ import contextlib
 import json
 import multiprocessing
 import re
+import socket
 import subprocess
 import sys
 import time
+import traceback
 
 import numpy as np
 import torch
 
+from aligator_tpu_torch import distributed as D
 from aligator_tpu_torch.convert import lqr_from_numpy, problem_from_numpy
 from aligator_tpu_torch.dynamics.multibody import floating_base_actuation
 from aligator_tpu_torch.examples import centroidal as TC
@@ -1139,6 +1148,7 @@ def spawned(targets: dict):
             recv, send = ctx.Pipe(duplex=False)
             children.append(ctx.Process(target=target, args=(send, *args), daemon=True))
             children[-1].start()
+            send.close()  # the child's copy stays open: its end reads as EOF
             pipes[name] = recv
         yield pipes
     finally:
@@ -1361,7 +1371,7 @@ def rel_gap(a, b) -> float:
     return float(((a - b).abs() / b.abs().clamp(min=1.0)).max())
 
 
-def solvers_phase(dev, walk_cost) -> None:
+def solvers_phase(dev, walk_cost, beside=None) -> None:
     """FDDP and ProxDDP's filter, nonlinear rollout and exact Hessian on
     the card: (1) the lqr56 chain without its box by FDDP and by fused
     ProxDDP (K1 <56, 22, 0> and K2); (2) the talos walk's 16 scenarios by
@@ -1370,12 +1380,13 @@ def solvers_phase(dev, walk_cost) -> None:
     the CPU. (1) runs alone. Each of (2)-(4) is bound by the host thread
     that issues its kernels, so (2) and (4) run in child processes beside
     (3): the card is shared by three processes, and those three walls are
-    contended, those of runs side by side."""
+    contended, those of runs side by side. ``beside`` (slice 7's phase)
+    runs where the parent would otherwise wait idle for (4)."""
     t_phase = time.perf_counter()
     lqr56_chain(dev)
     with spawned({"walk fddp": (_walk_fddp_child, ()),
                   "pendulum": (_pendulum_child, ())}) as pipes:
-        _solvers_phase(dev, walk_cost, pipes)
+        _solvers_phase(dev, walk_cost, pipes, beside)
     print(f"solvers phase: {time.perf_counter() - t_phase:.1f} s")
 
 
@@ -1429,7 +1440,7 @@ def lqr56_chain(dev) -> None:
     check(k1 >= 1 and k2 >= 1, "lqr56 chain: the fused solve went through K1 and K2")
 
 
-def _solvers_phase(dev, walk_cost, pipes) -> None:
+def _solvers_phase(dev, walk_cost, pipes, beside) -> None:
     # (3) the walk by fused ProxDDP with the nonlinear rollout through K1's gains
     walk32 = walk_scenarios(*TW.create_walk_problem(WALK_TSS, WALK_TDS, dtype=torch.float32,
                                                     device=dev))
@@ -1466,6 +1477,11 @@ def _solvers_phase(dev, walk_cost, pipes) -> None:
     check(w["finite"], "walk FDDP iterates finite")
     check(all(w["conv"]), "every walk scenario converges under FDDP")
 
+    if beside is not None:
+        t0 = time.perf_counter()
+        beside()
+        print(f"distributed phase: {time.perf_counter() - t0:.1f} s, beside the pendulum, "
+              f"examples and legged children")
     # (4) the pendulum cases on the card against the CPU (float64)
     t0 = time.perf_counter()
     check(pipes["pendulum"].poll(900), "the pendulum solves of the child process finished")
@@ -1548,30 +1564,30 @@ def _examples_child(conn, names, device) -> None:
 
 
 
-def k_quad_check(dev):
-    """K1 (its instantiation for widths read at launch) and K2 at the
-    quadrotor's widths, B = 16, N = 60, nx = 12, nu = 4, nc = 6: against
-    their plain versions under the gate 1e-4·max|·| at µ = 1e-2 (the
-    solve's µ_init) and 1e-4, then timed beside their bounds."""
-    Bsz, N, nx, nu, nc = QUAD_BATCH, 60, 12, 4, 6
-    variant = FR.backward_variant(nx, nu, nc)
-    check(variant == "runtime", f"the quadrotor's widths take K1's runtime instantiation: {variant}")
-    lq = lqr_from_numpy(random_lq_arrays(np.random.default_rng(13), Bsz, N, nx, nu, nc),
+def k_widths_check(dev, label, Bsz, N, nx, nu, nc, seed, mus, variant, suffix, path,
+                   instantiation):
+    """K1 and K2 at one path's widths: against their plain versions on
+    random inputs under the gate 1e-4·max|·| at each µ of ``mus``, then
+    timed at the first beside their bounds. Returns the path's two kernel
+    rows (``riccati_backward_<suffix>``, ``riccati_forward_<suffix>``)."""
+    got = FR.backward_variant(nx, nu, nc)
+    check(got == variant, f"the {label} widths take K1's {variant} instantiation: {got}")
+    lq = lqr_from_numpy(random_lq_arrays(np.random.default_rng(seed), Bsz, N, nx, nu, nc),
                         device=dev, dtype=torch.float32)
     knots = knots_of(lq)
-    gen = torch.Generator(device=dev).manual_seed(13)
+    gen = torch.Generator(device=dev).manual_seed(seed)
     x0 = torch.randn(Bsz, nx, device=dev, generator=gen)
     l0 = torch.randn(Bsz, nx, device=dev, generator=gen)
     errs_b, errs_f = {}, {}
-    for mu_val in (1e-2, 1e-4):
+    for mu_val in mus:
         mu = torch.full((Bsz,), mu_val, device=dev)
-        _, gp, vp, e1 = check_k1(f"quadrotor mu={mu_val:g}", knots, mu)
-        e2 = check_k2(f"quadrotor mu={mu_val:g}", gp, vp, x0, l0, "rel", set())
+        _, gp, vp, e1 = check_k1(f"{label} mu={mu_val:g}", knots, mu)
+        e2 = check_k2(f"{label} mu={mu_val:g}", gp, vp, x0, l0, "rel", set())
         errs_b[mu_val], errs_f[mu_val] = e1, e2
-        print(f"kernels K1 quadrotor widths B={Bsz} N={N} nx={nx} nu={nu} nc={nc} "
+        print(f"kernels K1 {label} widths B={Bsz} N={N} nx={nx} nu={nu} nc={nc} "
               f"mu={mu_val:g} ({variant}): max abs err {json.dumps(e1)}; K2 "
               f"({'x'.join(map(str, FR.forward_plan(gp, vp)))}) max abs err {json.dumps(e2)}")
-    mu = torch.full((Bsz,), 1e-2, device=dev)
+    mu = torch.full((Bsz,), mus[0], device=dev)
     gp, vp = FR.backward_sweep_batched_ref(knots, mu)
     L = N + 1
     k1_ms = cuda_ms(lambda: FR.backward_sweep_batched(knots, mu), 20)
@@ -1580,24 +1596,32 @@ def k_quad_check(dev):
     k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
     b1, by1 = bound_ms(*backward_cost(Bsz, L, nx, nu, nc, 1))
     b2, by2 = bound_ms(*forward_cost(Bsz, L, nx, nu, nc))
-    print(f"quadrotor widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, bound "
-          f"{b1:.4f} ms by {by1}, {k1_ms / b1:.1f}x; {k1_ms / L * 1e3:.2f} us per knot); K2 "
-          f"{k2_ms:.4f} ms (plain {k2_plain:.3f} ms, bound {b2:.4f} ms by {by2}, "
-          f"{k2_ms / b2:.1f}x)")
+    print(f"{label} widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, bound "
+          f"{b1:.4f} ms by {by1}, {k1_ms / b1:.1f}x; {k1_ms / L * 1e3:.2f} us per knot; "
+          f"{FR.backward_blocks_per_sm(nx, nu, nc)} blocks per SM); K2 {k2_ms:.4f} ms (plain "
+          f"{k2_plain:.3f} ms, bound {b2:.4f} ms by {by2}, {k2_ms / b2:.1f}x)")
     return [
-        dict(name="riccati_backward_quadrotor", route="cuda",
+        dict(name=f"riccati_backward_{suffix}", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_backward.cu",
              replaces="aligator_tpu/gar/pallas_riccati.py:225",
-             instantiation="riccati_backward_kernel, widths read at launch",
-             path="quadrotor_obstacles",
+             instantiation=instantiation, path=path,
              max_abs_err=max(max(e.values()) for e in errs_b.values()), ms=k1_ms,
              plain_ms=k1_plain, bound_ms=b1, bound_by=by1, library_ms=None),
-        dict(name="riccati_forward_quadrotor", route="cuda",
+        dict(name=f"riccati_forward_{suffix}", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_forward.cu",
-             replaces="aligator_tpu/gar/pallas_riccati.py:549", path="quadrotor_obstacles",
+             replaces="aligator_tpu/gar/pallas_riccati.py:549", path=path,
              max_abs_err=max(max(e.values()) for e in errs_f.values()), ms=k2_ms,
              plain_ms=k2_plain, bound_ms=b2, bound_by=by2, library_ms=None),
     ]
+
+
+def k_quad_check(dev):
+    """K1 (its instantiation for widths read at launch) and K2 at the
+    quadrotor's widths, B = 16, N = 60, nx = 12, nu = 4, nc = 6, at µ =
+    1e-2 (the solve's µ_init) and 1e-4."""
+    return k_widths_check(dev, "quadrotor", QUAD_BATCH, 60, 12, 4, 6, 13, (1e-2, 1e-4),
+                          "runtime", "quadrotor", "quadrotor_obstacles",
+                          "riccati_backward_kernel, widths read at launch")
 
 
 def quadrotor_solves(dev, part: str) -> dict:
@@ -1776,6 +1800,10 @@ def examples_phase(pipes):
 # through JSON and rebuilt on the card.
 JUMP_BATCH = 16
 JUMP_TIMED_ITERS = 10  # iterations of each unheld solve timed for the jump's wall
+# the jump's three solves stop at 120 of the example's 200 iterations: in
+# float32 the batch never converges (ROADMAP C13), and the whole script
+# must fit its time limit beside slice 7's processes
+JUMP_SETTINGS = {**TJ.SETTINGS, "max_iters": 120}
 BACKWARD_TOL = 1e-5  # a knot's backward error in float32 (the plain version's ~3e-7)
 PIVOT_TOL = 1e-5  # λmin / λmax of R̂ at which a float32 step may break down
 LEGGED_EXAMPLES = {  # name → (module, ProxDDPSettings of the example's main)
@@ -1786,53 +1814,11 @@ LEGGED_EXAMPLES = {  # name → (module, ProxDDPSettings of the example's main)
 
 def k_jump_check(dev):
     """K1 (its instantiation for widths read at launch) and K2 at the
-    jump's widths, B = 16, N = 45, nx = 36, nu = 12, nc = 0: against their
-    plain versions under the gate 1e-4·max|·| at µ = 1e-2 (the solve's
-    µ_init) and 1e-4, then timed beside their bounds."""
-    Bsz, N, nx, nu, nc = JUMP_BATCH, 45, 36, 12, 0
-    variant = FR.backward_variant(nx, nu, nc)
-    check(variant == "runtime", f"the jump's widths take K1's runtime instantiation: {variant}")
-    lq = lqr_from_numpy(random_lq_arrays(np.random.default_rng(17), Bsz, N, nx, nu, nc),
-                        device=dev, dtype=torch.float32)
-    knots = knots_of(lq)
-    gen = torch.Generator(device=dev).manual_seed(17)
-    x0 = torch.randn(Bsz, nx, device=dev, generator=gen)
-    l0 = torch.randn(Bsz, nx, device=dev, generator=gen)
-    errs_b, errs_f = {}, {}
-    for mu_val in (1e-2, 1e-4):
-        mu = torch.full((Bsz,), mu_val, device=dev)
-        _, gp, vp, e1 = check_k1(f"jump mu={mu_val:g}", knots, mu)
-        e2 = check_k2(f"jump mu={mu_val:g}", gp, vp, x0, l0, "rel", set())
-        errs_b[mu_val], errs_f[mu_val] = e1, e2
-        print(f"kernels K1 jump widths B={Bsz} N={N} nx={nx} nu={nu} nc={nc} mu={mu_val:g} "
-              f"({variant}): max abs err {json.dumps(e1)}; K2 "
-              f"({'x'.join(map(str, FR.forward_plan(gp, vp)))}) max abs err {json.dumps(e2)}")
-    mu = torch.full((Bsz,), 1e-2, device=dev)
-    gp, vp = FR.backward_sweep_batched_ref(knots, mu)
-    L = N + 1
-    k1_ms = cuda_ms(lambda: FR.backward_sweep_batched(knots, mu), 20)
-    k1_plain = cuda_ms(lambda: FR.backward_sweep_batched_ref(knots, mu), 3)
-    k2_ms = cuda_ms(lambda: FR.forward_sweep_batched(gp, vp, x0, l0), 20)
-    k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
-    b1, by1 = bound_ms(*backward_cost(Bsz, L, nx, nu, nc, 1))
-    b2, by2 = bound_ms(*forward_cost(Bsz, L, nx, nu, nc))
-    print(f"jump widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, bound "
-          f"{b1:.4f} ms by {by1}, {k1_ms / b1:.1f}x; {k1_ms / L * 1e3:.2f} us per knot; "
-          f"{FR.backward_blocks_per_sm(nx, nu, nc)} blocks per SM); K2 {k2_ms:.4f} ms (plain "
-          f"{k2_plain:.3f} ms, bound {b2:.4f} ms by {by2}, {k2_ms / b2:.1f}x)")
-    return [
-        dict(name="riccati_backward_solo", route="cuda",
-             source="aligator_tpu_torch/csrc/riccati_backward.cu",
-             replaces="aligator_tpu/gar/pallas_riccati.py:225",
-             instantiation="riccati_backward_kernel, widths read at launch", path="solo_jump",
-             max_abs_err=max(max(e.values()) for e in errs_b.values()), ms=k1_ms,
-             plain_ms=k1_plain, bound_ms=b1, bound_by=by1, library_ms=None),
-        dict(name="riccati_forward_solo", route="cuda",
-             source="aligator_tpu_torch/csrc/riccati_forward.cu",
-             replaces="aligator_tpu/gar/pallas_riccati.py:549", path="solo_jump",
-             max_abs_err=max(max(e.values()) for e in errs_f.values()), ms=k2_ms,
-             plain_ms=k2_plain, bound_ms=b2, bound_by=by2, library_ms=None),
-    ]
+    jump's widths, B = 16, N = 45, nx = 36, nu = 12, nc = 0, at µ = 1e-2
+    (the solve's µ_init) and 1e-4."""
+    return k_widths_check(dev, "jump", JUMP_BATCH, 45, 36, 12, 0, 17, (1e-2, 1e-4),
+                          "runtime", "solo", "solo_jump",
+                          "riccati_backward_kernel, widths read at launch")
 
 
 def jump_solves(dev, part: str) -> dict:
@@ -1861,14 +1847,14 @@ def jump_solves(dev, part: str) -> dict:
         torch.cuda.synchronize()
         return r, time.perf_counter() - t0
 
-    fused = ProxDDPSettings(lq_solver="pallas", **TJ.SETTINGS)
+    fused = ProxDDPSettings(lq_solver="pallas", **JUMP_SETTINGS)
     if part == "serial":
-        r, secs = timed(prob16, ProxDDPSettings(lq_solver="serial", **TJ.SETTINGS))
+        r, secs = timed(prob16, ProxDDPSettings(lq_solver="serial", **JUMP_SETTINGS))
         return dict(serial=host(r), serial_s=secs)
     if part == "f64":
         p64 = TJ.create_jump_problem(dtype=torch.float64, device=dev)[0]
         r, secs = timed(p64.replace_x0(prob16.x0.double()),
-                        ProxDDPSettings(lq_solver="serial", **TJ.SETTINGS))
+                        ProxDDPSettings(lq_solver="serial", **JUMP_SETTINGS))
         return dict(f64=host(r), f64_s=secs)
     reset_counts()
     with kernels_held_to_plain([], backward_error=True) as held:
@@ -1878,7 +1864,7 @@ def jump_solves(dev, part: str) -> dict:
                N=problem.nsteps, nx=problem.space.nx, ndx=problem.ndx, nu=problem.nu,
                nc=problem.nc)
     capped = ProxDDPSettings(lq_solver="pallas",
-                             **{**TJ.SETTINGS, "max_iters": JUMP_TIMED_ITERS})
+                             **{**JUMP_SETTINGS, "max_iters": JUMP_TIMED_ITERS})
     runs = [timed(prob16, capped) for _ in range(3)]
     out["timed_s"] = [secs for _, secs in runs]
     out["timed_iters"] = [int(r.num_iters.max()) for r, _ in runs]
@@ -1941,9 +1927,9 @@ def _legged_child(conn, device) -> None:
 
 
 # (a) in three children beside the solvers phase (each solve is bound by
-# its host thread): the held solve and the two references. A solve is 200
-# iterations (ROADMAP C13); three more for a median of walls do not fit the
-# run's time limit.
+# its host thread): the held solve and the two references. A solve is 120
+# iterations (``JUMP_SETTINGS``; ROADMAP C13); three more for a median of
+# walls do not fit the run's time limit.
 LEGGED_CHILDREN = {
     "jump held": (_jump_child, ("cuda", "held")),
     "jump serial": (_jump_child, ("cuda", "serial")),
@@ -2089,8 +2075,8 @@ def jump_report(q) -> dict:
           f"{[float('%.3e' % v) for v in g_s]} (median {float(np.median(g_s)):.3e}), fused f32 "
           f"vs serial f64 {[float('%.3e' % v) for v in g_64]} (median "
           f"{float(np.median(g_64)):.3e})")
-    # in float32 the batch stops unconverged at 200 iterations, in the JAX
-    # package too (ROADMAP C13): the costs of two unconverged iterates are
+    # in float32 the batch does not converge, in the JAX package either
+    # (ROADMAP C13): the costs of two unconverged iterates are
     # printed, and the jump is gated on its outcome in every scenario
     rise, drift = f["apex"] - f["z0"], np.abs(f["zN"] - f["z0"])
     print(f"legged: jump base z per scenario: start {np.round(f['z0'], 4).tolist()}, apex "
@@ -2149,6 +2135,261 @@ def legged_phase(pipes) -> dict:
     return launches
 
 
+# ---------------------------------------------------------------------------
+# slice 7: Riccati legs and scenario batches over several processes. Each
+# part is a world of its own, spawned children that share the one card and
+# meet at a rendezvous on the loopback:
+#   (a) the lqr56 problem, B = 64, float64, 4 legs over a (1, 2) grid (Gloo);
+#   (b) the bench solve, B = 256 over a (2, 1) grid, 128 scenarios per rank
+#       through K1 and K2 (Gloo);
+#   (c) (a)'s batch over a (2, 2) grid, 32 scenarios per b row (Gloo);
+#   (d) (a) over NCCL in a world of one.
+# NCCL refuses two ranks on one card, so the Gloo parts share it; what they
+# show is that the path runs on CUDA tensors and through the kernels. All
+# nine children start with the examples' and the legged children and join
+# their worlds; the parts are released one after the other inside the
+# solvers phase, where the parent would otherwise wait idle for the
+# pendulum child, beside the other children.
+# ---------------------------------------------------------------------------
+
+DIST_TIMEOUT_S = 60  # every group's collectives
+DIST_WAIT_S = 300  # a child's answer
+DIST_RELEASE_S = 900  # a child's wait for its part's release
+DIST_BATCH, DIST_LEGS = 64, 4
+DIST_SETTINGS = dict(tol=1e-8, mu_init=1e-3, max_iters=20)  # tests/multihost_worker.py
+DIST_PARTS = {  # part → (ranks, legs per t group, backend)
+    "a legs": (2, 2, "gloo"), "b batch": (2, 1, "gloo"), "c b x t": (4, 2, "gloo"),
+    "d nccl": (1, 1, "nccl")}
+
+
+def dist_problem(dev, x0s, dtype):
+    arr = lqr_bench_arrays()
+    return problem_from_numpy(arr["A"], arr["B"], arr["c"], arr["Q"], arr["R"], arr["Qf"],
+                              x0s, NSTEPS, arr["lower"], arr["upper"], device=dev, dtype=dtype)
+
+
+def dist_settings(mesh=None, legs=DIST_LEGS) -> ProxDDPSettings:
+    return ProxDDPSettings(**DIST_SETTINGS, lq_num_legs=legs, lq_mesh=mesh)
+
+
+def timed_solve(fn, reps: int = 3):
+    """(fn's first result, the walls in seconds of its ``reps`` calls)."""
+    walls, out = [], None
+    for _ in range(reps):
+        t0 = time.perf_counter()
+        res = fn()
+        torch.cuda.synchronize()
+        walls.append(time.perf_counter() - t0)
+        out = res if out is None else out
+    return out, walls
+
+
+def result_arrays(res) -> dict:
+    return {k: getattr(res, k).cpu().numpy()
+            for k in ("xs", "us", "vs", "lams", "conv", "num_iters")}
+
+
+def dist_rank(part: str, mesh, dev) -> dict:
+    """This rank's share of ``part``: its scenarios' results as numpy
+    arrays, the walls of its three solves (the first one's results), and
+    K1's and K2's launches in that first solve."""
+    rows = (BATCH if part == "b batch" else DIST_BATCH) // mesh.shape["b"]
+    b = mesh.coords["b"]
+    if part == "b batch":
+        x0s = batch_x0(BATCH)[b * rows:(b + 1) * rows]
+        settings, dtype = bench_settings("pallas"), torch.float32
+    else:
+        x0s = batch_x0(DIST_BATCH)[b * rows:(b + 1) * rows]
+        settings, dtype = dist_settings(mesh), torch.float64
+    solve = D.make_batch_solver(dist_problem(dev, x0s, dtype), settings, mesh)
+    x = D.shard_batch(x0s, mesh)
+    launches = []
+
+    def counted_solve():
+        reset_counts()
+        res = solve(x)
+        launches.append(read_counts())
+        return res
+
+    res, walls = timed_solve(counted_solve)
+    return dict(coords=mesh.coords, rows=(b * rows, (b + 1) * rows), walls=walls,
+                k1=launches[0]["riccati_backward"], k2=launches[0]["riccati_forward"],
+                **result_arrays(res))
+
+
+def _dist_child(conn, part: str, rank: int, port: int, device: str, go) -> None:
+    """Join ``part``'s world, say so, wait for ``go``, run this rank's share."""
+    world, legs, backend = DIST_PARTS[part]
+    dev = torch.device(device)
+    full_f32_matmuls()
+    try:
+        D.initialize(f"127.0.0.1:{port}", world, rank, backend=backend, device=dev,
+                     timeout=DIST_TIMEOUT_S)
+        mesh = D.make_solver_mesh(legs=legs, device=dev, timeout=DIST_TIMEOUT_S)
+        conn.send(("ready", None))
+        if not go.wait(DIST_RELEASE_S):
+            raise TimeoutError(f"not released within {DIST_RELEASE_S} s")
+        conn.send(("ok", dist_rank(part, mesh, dev)))
+    except BaseException:
+        conn.send(("error", traceback.format_exc()))
+        raise
+    finally:
+        if torch.distributed.is_initialized():
+            torch.distributed.destroy_process_group()
+        conn.close()
+
+
+def dist_answer(pipe, what: str):
+    check(pipe.poll(DIST_WAIT_S), f"distributed {what} answered")
+    status, payload = pipe.recv()
+    check(status != "error", f"distributed {what} failed:\n{payload}")
+    return payload
+
+
+def free_port() -> int:
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        return sock.getsockname()[1]
+
+
+def rel_to_one(a, b) -> float:
+    """max|a − b| / max(1, max|b|)."""
+    return float(np.abs(a - b).max()) / max(1.0, float(np.abs(b).max()))
+
+
+def same_bits(a: dict, b: dict) -> bool:
+    return all(np.array_equal(a[k], b[k]) for k in ("xs", "us", "vs", "lams", "conv",
+                                                     "num_iters"))
+
+
+def k_dist_check(dev):
+    """K1 (the bench instantiation) and K2 at the shape one rank of part (b)
+    gives them: B = 128, N = 100, nx = 56, nu = nc = 22, µ = 1e-2."""
+    return k_widths_check(dev, "distributed", BATCH // 2, NSTEPS, NX, NU, NU, 19, (1e-2,),
+                          "bench", "distributed", "distributed",
+                          "riccati_backward_kernel<56, 22, 22>")
+
+
+def check_batch_part(ranks, fused, shards) -> str:
+    """(b): each rank's rows against the single-process fused solve of the
+    same 128 scenarios (≤ 1e-5·max|·|) and against its rows of the B = 256
+    solve (the fused-vs-serial gate of the slice phase, 1e-3: float32
+    kernels whose rounding depends on the batch size), equal iterations,
+    and K1 and K2 launched once per LQ solve."""
+    errs_shard, errs_full = [], []
+    for r, out in enumerate(ranks):
+        lo, hi = out["rows"]
+        own = shards[out["coords"]["b"]]
+        e1 = max(float(np.abs(out[k] - own[k]).max()) / float(np.abs(own[k]).max())
+                 for k in ("xs", "us"))
+        e2 = max(float(np.abs(out[k] - fused[k][lo:hi]).max()) for k in ("xs", "us"))
+        errs_shard.append(e1)
+        errs_full.append(e2)
+        check(e1 <= 1e-5, f"distributed (b) rank {r} against its shard in one process: {e1}")
+        check(e2 <= 1e-3, f"distributed (b) rank {r} against its rows at B={BATCH}: {e2}")
+        check(np.array_equal(out["num_iters"], fused["num_iters"][lo:hi]),
+              f"distributed (b) rank {r}: equal iterations")
+        n_it = int(out["num_iters"].max())
+        check(out["k1"] == out["k2"] >= n_it >= 1,
+              f"distributed (b) rank {r}: K1 {out['k1']} K2 {out['k2']} launches")
+    return (f"K1 launches per rank {[o['k1'] for o in ranks]}, K2 {[o['k2'] for o in ranks]}; "
+            f"max|d|/max|.| against the same shard solved in one process "
+            f"{[f'{e:.3e}' for e in errs_shard]}; max|d| against its rows of the "
+            f"B={BATCH} solve {[f'{e:.3e}' for e in errs_full]}")
+
+
+def check_legs_part(part, ranks, legs, serial) -> str:
+    """(a), (c), (d): each rank against the unsharded and the serial-LQ
+    solve of its rows (≤ 1e-10·max(1, max|·|), equal conv and iterations),
+    the ranks of each t group bitwise equal, and (d) bitwise equal to the
+    unsharded solve."""
+    errs = []
+    for r, out in enumerate(ranks):
+        lo, hi = out["rows"]
+        for name, ref in (("unsharded", legs), ("serial", serial)):
+            e = max(rel_to_one(out[k], ref[k][lo:hi]) for k in ("xs", "us"))
+            errs.append(e)
+            check(e <= 1e-10, f"distributed ({part}) rank {r} against the {name} solve: {e}")
+            check(np.array_equal(out["conv"], ref["conv"][lo:hi])
+                  and np.array_equal(out["num_iters"], ref["num_iters"][lo:hi]),
+                  f"distributed ({part}) rank {r}: conv and iterations equal the {name} solve's")
+    groups = {}
+    for out in ranks:
+        groups.setdefault(out["coords"]["b"], []).append(out)
+    bitwise = all(same_bits(g[0], o) for g in groups.values() for o in g[1:])
+    check(bitwise, f"distributed ({part}): the ranks of each t group bitwise equal")
+    if part == "d nccl":
+        check(same_bits(ranks[0], legs), "distributed (d): bitwise equal to the unsharded solve")
+    return (f"max|d|/max(1, max|.|) against the unsharded and serial solves {max(errs):.3e}, "
+            f"t groups bitwise equal {bitwise}"
+            f"{', bitwise equal to the unsharded solve' if part == 'd nccl' else ''}")
+
+
+def dist_children(dev) -> tuple:
+    """The children of parts (a) to (d), as ``spawned`` takes them, and the
+    events that release each part."""
+    ctx = multiprocessing.get_context("spawn")
+    go = {part: ctx.Event() for part in DIST_PARTS}
+    ports = {part: free_port() for part in DIST_PARTS}
+    children = {(part, r): (_dist_child, (part, r, ports[part], str(dev), go[part]))
+                for part, (world, _, _) in DIST_PARTS.items() for r in range(world)}
+    return children, go
+
+
+def distributed_phase(dev, smi: str, pipes, go) -> dict:
+    """Parts (a) to (d) from the children of ``dist_children`` (``pipes``),
+    each against single-process solves on the card. Returns K1's and K2's
+    launches over (b)'s ranks."""
+    t_start = time.perf_counter()
+    for (part, r), pipe in pipes.items():
+        dist_answer(pipe, f"({part}) rank {r} joining its world")
+    print(f"distributed: {len(pipes)} children in their worlds, waited "
+          f"{time.perf_counter() - t_start:.1f} s; card {smi}; every wall below beside "
+          f"the pendulum, examples and legged children")
+    x0s = batch_x0(DIST_BATCH)
+    p64 = dist_problem(dev, x0s, torch.float64)
+    legs, wall_legs = timed_solve(lambda: solve(p64, dist_settings()))
+    legs = result_arrays(legs)
+    serial = result_arrays(solve(p64, dist_settings(legs=0)))
+    bench = dist_problem(dev, batch_x0(BATCH), torch.float32)
+    fused, wall_fused = timed_solve(lambda: solve(bench, bench_settings("pallas")))
+    fused = result_arrays(fused)
+    half = BATCH // 2
+    shards = [result_arrays(solve(dist_problem(dev, batch_x0(BATCH)[i * half:(i + 1) * half],
+                                               torch.float32), bench_settings("pallas")))
+              for i in range(2)]
+    med = lambda w: float(np.median(w))
+    print(f"distributed: one process: lqr56 B={DIST_BATCH} f64 {DIST_LEGS} legs conv "
+          f"{int(legs['conv'].sum())}/{DIST_BATCH}, iterations max "
+          f"{int(legs['num_iters'].max())}, wall s {[round(w, 3) for w in wall_legs]}; "
+          f"the bench solve B={BATCH} fused wall s {[round(w, 3) for w in wall_fused]}")
+    check(np.array_equal(legs["conv"], serial["conv"])
+          and np.array_equal(legs["num_iters"], serial["num_iters"]),
+          "one process: equal conv and iterations with legs and serial")
+    launches = {}
+    for part, (world, t, backend) in DIST_PARTS.items():
+        t0 = time.perf_counter()
+        go[part].set()
+        ranks = [dist_answer(pipes[(part, r)], f"({part}) rank {r}") for r in range(world)]
+        elapsed = time.perf_counter() - t0
+        if part == "b batch":
+            ref_wall = wall_fused
+            detail = check_batch_part(ranks, fused, shards)
+            launches = {"riccati_backward_distributed": sum(o["k1"] for o in ranks),
+                        "riccati_forward_distributed": sum(o["k2"] for o in ranks)}
+        else:
+            ref_wall = wall_legs
+            detail = check_legs_part(part, ranks, legs, serial)
+        walls = [med(o["walls"]) for o in ranks]
+        sharing = "processes time-sharing one card" if world > 1 else "one child process"
+        print(f"distributed ({part}): {world} rank(s), grid (b, t) = ({world // t}, {t}), "
+              f"{backend}; iterations max {max(int(o['num_iters'].max()) for o in ranks)}; "
+              f"{detail}; solve wall s, median of 3, per rank "
+              f"{[round(w, 3) for w in walls]} ({sharing}) beside {med(ref_wall):.3f} in "
+              f"one process; part {elapsed:.1f} s")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -2184,14 +2425,22 @@ def main() -> int:
     kernels += k_jump_check(dev)
     jump_spec_check(dev)
     t0 = time.perf_counter()
-    with spawned({**EXAMPLE_CHILDREN, **LEGGED_CHILDREN}) as pipes:
-        solvers_phase(dev, walk_cost)
+    # slice 7's children join their worlds at the start; its parts run in
+    # the solvers phase, where the parent would wait for the pendulum child
+    dist, go = dist_children(dev)
+    with spawned({**EXAMPLE_CHILDREN, **LEGGED_CHILDREN}) as pipes, \
+            spawned(dist) as dist_pipes:
+        solvers_phase(dev, walk_cost, beside=lambda: launches.update(
+            distributed_phase(dev, smi, dist_pipes, go)))
         launches.update(examples_phase(pipes))
         t1 = time.perf_counter()
         launches.update(legged_phase(pipes))
         print(f"legged phase: {time.perf_counter() - t1:.1f} s after the examples phase, "
               f"{time.perf_counter() - t0:.1f} s from the children's start")
-    print(f"solvers, examples and legged phases: {time.perf_counter() - t0:.1f} s")
+    print(f"solvers, distributed, examples and legged phases: "
+          f"{time.perf_counter() - t0:.1f} s")
+    # K1 and K2 at the shape one rank of slice 7's part (b) gives them, alone
+    kernels += k_dist_check(dev)
     print(f"all phases: {time.perf_counter() - t_run:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]

@@ -359,3 +359,40 @@ def test_jax_public_names_are_exported_by_the_port():
     from aligator_tpu_torch import io as tio
 
     assert callable(tio.problem_from_spec) and callable(tio.problem_to_spec)
+
+
+def test_every_jax_module_has_its_port():
+    """Every module of ``aligator_tpu/`` has its counterpart at the same
+    path in the port; the one declared mapping is the Pallas Riccati
+    kernels → the fused CUDA sweeps. Every public function of
+    ``distributed``, ``gar.parallel`` and ``utils.plotting`` is in the port
+    and takes the JAX function's parameters by name (``make_solver_mesh``
+    orders world ranks where the JAX one takes devices)."""
+    import importlib
+    import inspect
+    import pathlib
+
+    root = pathlib.Path(__file__).resolve().parents[1]
+    moved = {"gar/pallas_riccati.py": "gar/fused_riccati.py"}
+    jax_modules = sorted(str(p.relative_to(root / "aligator_tpu"))
+                         for p in (root / "aligator_tpu").rglob("*.py"))
+    missing = [m for m in jax_modules
+               if not (root / "aligator_tpu_torch" / moved.get(m, m)).is_file()]
+    assert not missing, missing
+    renamed = {("distributed", "make_solver_mesh"): {"devices": "ranks"}}
+    # gar.parallel's shard_map is the JAX package's wrapper of jax.shard_map,
+    # whose place the explicit collectives of distributed.py take
+    skipped = {("gar.parallel", "shard_map")}
+    for sub in ("distributed", "gar.parallel", "utils.plotting"):
+        jmod = importlib.import_module(f"aligator_tpu.{sub}")
+        tmod = importlib.import_module(f"aligator_tpu_torch.{sub}")
+        names = [n for n, f in inspect.getmembers(jmod, inspect.isfunction)
+                 if f.__module__ == jmod.__name__ and not n.startswith("_")
+                 and (sub, n) not in skipped]
+        assert names, sub
+        for name in names:
+            assert hasattr(tmod, name), f"{sub}.{name}"
+            want = [renamed.get((sub, name), {}).get(p, p)
+                    for p in inspect.signature(getattr(jmod, name)).parameters]
+            have = inspect.signature(getattr(tmod, name)).parameters
+            assert [p for p in want if p not in have] == [], f"{sub}.{name}"

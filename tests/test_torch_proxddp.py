@@ -207,18 +207,14 @@ def test_proxddp_f64_settings_match_jax_vmap(kw):
     (dict(rollout_type="nonlinear", sa_strategy="armijo"), "A27"),
     (dict(hessian_approx="exact"), "A25"),
     (dict(record_history=True, record_iterates=True), "A30"),
-    (dict(lq_mesh=object()), "A19b"),
 ])
 def test_unported_settings_raise(kw, item):
-    """Only legs over several devices (A19b) are left unported and raise;
-    the settings of A25, A26, A27 and A30, which raised until they were
-    ported, now run and match the vmapped JAX solve in float64 (1e-12,
-    equal counters; the recorded history too)."""
+    """No setting is left unported: those of A25, A26, A27 and A30, which
+    raised until they were ported, run and match the vmapped JAX solve in
+    float64 (1e-12, equal counters; the recorded history too). Legs over
+    several processes (``lq_mesh``, A19b) are held against the JAX
+    package's mesh solves in tests/test_torch_distributed.py."""
     f = _fixture(0)
-    if item == "A19b":
-        with pytest.raises(NotImplementedError, match=item):
-            port_solve(_port_problem(f, _x0s(), torch.float64), ProxDDPSettings(**kw))
-        return
     base = dict(tol=1e-8, mu_init=1e-2, max_iters=30, **kw)
     res_j = _jax_vmap_solve(f, _x0s(), JSettings(**base), jnp.float64)
     res_t = port_solve(_port_problem(f, _x0s(), torch.float64), ProxDDPSettings(**base))
