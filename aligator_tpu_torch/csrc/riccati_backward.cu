@@ -7,6 +7,17 @@
 // `_stage_solve` / `_terminal_solve` over t = N..0 with nth = 0; the KKT
 // solve is the reference kernel's explicit-inverse form (`_kkt_solve_T`).
 //
+// Two kernels. `riccati_backward_kernel<NX, NU, NC>` has its widths compiled
+// in and serves the bench widths (nx = 56, nu = nc = 22) and the talos
+// walk's (nx = 56, nu = 22, nc = 0); `riccati_backward_small<NT, NCH>`
+// reads its widths at launch and serves every other width (nu, nc <= 32,
+// nx <= 84) in one of twelve classes: NT ∈ {32, 64, 128, 256} threads, the
+// fewest that give each 4 × 4 tile of a knot's largest pass its own thread,
+// and a Gauss-Jordan chain of NCH ∈ {8, 16, 32} rows, the shortest that
+// holds max(nu, nc). `variant_of` below (and fused_riccati.backward_plan)
+// picks one; e.g. the quadrotor (12, 4, 6) takes <32, 8>, the solo jump
+// (36, 12, 0) <128, 16>.
+//
 // What bounds it on an H100. At the bench widths (nx = 56, nu = nc = 22) a
 // knot reads ~24 KB and writes ~26 KB and needs ~2.1 MFLOP (chip_smoke.py
 // `backward_cost`), so the function's bound is the float32 FMA rate
@@ -17,7 +28,10 @@
 // and two 22-step elimination chains on one warp. The loop body's code is
 // larger than the instruction cache, so code size moves the time as much
 // as arithmetic does: unrolled loops and duplicated epilogues cost more
-// than they save.
+// than they save. At small widths the bound is bytes (a few KB per knot)
+// and the arithmetic is under a microsecond per knot on one SM; what is
+// left is latency: ~8 (nc = 0) to 12 dependent phases, two chains of
+// nu and nc pivots, and the fetch of the loop body's code.
 //
 // Where the previous version (one thread per right-hand-side column,
 // barriers between all phases, products from shared memory) spent a knot,
@@ -26,6 +40,19 @@
 // the five triangular solves 41.8 %, the refinement residual 4.1 %, the
 // outputs 13.2 %. This version: ~43 us per knot, 4.4 ms per sweep; its
 // split is printed by `python -m aligator_tpu_torch.probes.k1_phases`.
+// The compiled widths' kernel took every other width too, with its widths
+// read at launch, until the small-width kernel: ~40 us per knot at the
+// quadrotor's and the jump's widths alike (79,000 cycles), 43 % of it in
+// the two chains (`warp_spd_inverse<32>`: 32 unrolled steps whatever n,
+// 2,728 B of spill), 25 % in the hat passes and 15 % in the last solve
+// phase, all of it far above the phases' arithmetic. The small-width
+// kernel: ~13-14.5 us per knot there (27,300-29,000 cycles; the chains
+// 11-17 % of it). What is left is each thread's serial latency through a
+// phase, a few hundred dependent instructions at ~5-10 cycles each (the
+// solve passes' shared-memory read-modify-writes, one entry after
+// another, cost 5 % of a knot until they moved as whole rows of 4): two or
+// four warps per problem instead of one take 3 % off the quadrotor's knot
+// (`probes.k1_phases --min-threads`), so the class keeps the fewest.
 //
 // Design, against each cause of that latency:
 // 1. The dependent chain. The KKT system [[R̂, Dᵀ], [D, -µI]] is solved
@@ -36,7 +63,10 @@
 //    S are positive definite) on one warp, a row per lane in registers, the
 //    pivot row passed by __shfl_sync, no block barrier. The solve and its
 //    refinement step are then parallel products: sol = T·rhs, then
-//    sol += T·(rhs - KKT·sol).
+//    sol += T·(rhs - KKT·sol). The small-width kernel's chain keeps its
+//    row in one array of NCH registers (no spill) and rolls its pivot loop
+//    (code of ~2·NCH instructions a step, not NCH² unrolled), and at nc = 0
+//    writes R̂⁻¹ straight into T, one phase fewer.
 // 2. Products. Every product is register-tiled: a thread accumulates a 4×4
 //    tile from 16-byte shared-memory loads of k-major operands (0.125 load
 //    instructions per FMA instead of 2), loading the next k while it uses
@@ -44,25 +74,45 @@
 //    passes, Wᵀ = [V | v]ᵀ·[A | f | B] and H = W·[A | f | B]. The thread
 //    that accumulates a tile of Q̂ (on or below the diagonal) or q̂ keeps it
 //    in registers through the KKT solve and writes the same tile of Vxx,
-//    mirrored, and vx: Q̂ never goes through shared memory. Widths are
-//    template arguments: one instantiation for the bench widths, one for
-//    the talos walk's (nc = 0), and one that reads them at run time.
+//    mirrored, and vx: Q̂ never goes through shared memory. The small-width
+//    kernel forms Wᵀ over the rows of A only, with v added to its column
+//    nx, and takes the hat tiles that hold column nx as [A | f | B]ᵀ·Wᵀ,
+//    which gives q̂ and r̂ their Mᵀv: a pass of cdiv(nx, 4) row tiles, so
+//    the jump's largest pass is 117 tiles and fits four warps.
 // 3. Loads. A knot's A, B, f, C, D, d do not depend on the carry (V, v):
 //    the next knot's are copied with cp.async (16-byte copies where the
 //    alignment allows) into a second buffer while the current knot
 //    computes. Q, S, R, q, r go from device memory straight into the
 //    registers of the threads that add them to the hats, issued at the top
-//    of the knot and consumed after the first product.
-// 4. Residency. 256 threads and 113,440 B of dynamic shared memory at the
+//    of the knot and consumed after the first product (the small-width
+//    kernel reads them through a per-tile descriptor set up before the
+//    time loop: a bit test and a load each).
+// 4. Fixed costs per knot (small widths). Every tile's coordinates are
+//    computed once per block, before the time loop, into registers; the
+//    element loops divide by multiplying with a reciprocal set up there;
+//    no sqrtf, / or % runs in a knot. The tile codes are hidden from
+//    loop-invariant code motion (`opaque`), so that the compiler recomputes
+//    a tile's few addresses in the knot instead of holding every one of
+//    them across the loop (that took more than 255 registers and spilled).
+//    One warp synchronizes with __syncwarp; a block of NT threads with
+//    __syncthreads, where every thread has work in the tile passes by the
+//    choice of NT (all of a block's threads work, so a named barrier over
+//    fewer would be the same barrier).
+// 5. Residency. 256 threads and 113,440 B of dynamic shared memory at the
 //    bench widths, registers capped at 128 per thread by the launch
 //    bounds, so two blocks fit on an SM (228 KB of shared memory, 64 K
 //    registers): B = 256 is one wave on 132 SMs. Shared memory is the
 //    limit that binds; the hat buffer Wᵀ shares its space with the
 //    solution, the residual and the factorization scratch, which are never
-//    live at the same time.
+//    live at the same time. The small-width kernel keeps that carve-up (so
+//    it takes every width the compiled-widths kernel took at widths read at
+//    launch) and its classes put 32 to 128 threads on a problem below 256,
+//    158-195 registers each and no spill: 12 blocks of the quadrotor's and
+//    3 of the jump's on an SM (2 of the widths read at launch before).
 // No tensor cores: the port keeps full float32 products (TF32 would lose
-// the digits the recursion needs at µ ≤ 1e-6). nc = 0 skips the Schur
-// block. The terminal knot's A, B, f are never read: its buffer is zero.
+// the digits the recursion needs at µ ≤ 1e-6), and at these widths no
+// product fills `wgmma`'s 64-row tile. nc = 0 skips the Schur block. The
+// terminal knot's A, B, f are never read: its buffer is zero.
 
 #include <cuda_runtime.h>
 
@@ -563,13 +613,16 @@ __global__ void __launch_bounds__(kThreads, 2) riccati_backward_kernel(
           const int i0 = 4 * (w / nct), j0 = 4 * (w % nct);
           float acc[4][4] = {};
           mm_kk<4, 4, false>(acc, l.K + i0, ldT, sol + j0, ldV, nk);
+          // whole rows of 4: the pad columns past m stay zero (rhs's are)
 #pragma unroll
-          for (int ii = 0; ii < 4; ++ii)
-#pragma unroll
-            for (int jj = 0; jj < 4; ++jj) {
-              const int r = i0 + ii, c = j0 + jj;
-              if (r < nk && c < m) res[r * ldV + c] = l.rhs[r * ldV + c] - acc[ii][jj];
-            }
+          for (int ii = 0; ii < 4; ++ii) {
+            const int r = i0 + ii;
+            if (r >= nk) break;
+            const float4 b = *reinterpret_cast<const float4*>(l.rhs + r * ldV + j0);
+            *reinterpret_cast<float4*>(res + r * ldV + j0) =
+                make_float4(b.x - acc[ii][0], b.y - acc[ii][1], b.z - acc[ii][2],
+                            b.w - acc[ii][3]);
+          }
         }
         __syncthreads();
       }
@@ -652,28 +705,702 @@ __global__ void __launch_bounds__(kThreads, 2) riccati_backward_kernel(
   }
 }
 
+// ---------------------------------------------------------------------------
+// The small-width kernel: widths read at launch, NT threads per block and
+// a chain of NCH rows fixed at compile time by its class.
+
+using RtDims = Dims<kRt, kRt, kRt>;
+
+// X = A⁻¹ for the symmetric positive definite n × n matrix A (n <= NMAX,
+// row stride lda) on the calling warp, by the same Gauss-Jordan
+// elimination as warp_spd_inverse, with one register array per lane and a
+// rolled pivot loop, so that its code and its registers stay small at any
+// n. Lane i keeps row i of [A | E] in w[], rotated so that the current
+// pivot column is always w[0]: at step j every lane computes its multiple
+// f of the pivot row (taken from lane j by shuffle) and shifts w[k+1] -
+// f·row_j[k+1] into w[k]; the identity column j of E enters at the end,
+// as -f (1 on lane j). The zero columns past n stay zero. After n steps
+// w[NMAX-n+k] = E(i, k) and A⁻¹(i, k) = E(i, k) / d_i, written to
+// X[i·xr + k·xc] (xr = ldx, xc = 1 for rows; xr = 1, xc = ldx for the
+// transpose). The arithmetic is warp_spd_inverse's, operation for
+// operation: same multiples, same fmaf, same Newton-refined reciprocal and
+// the same NaN signal at a non-positive pivot. Inlined: a call would save
+// the caller's live registers (the Q̂ tile, the next knot's hat terms) to
+// the stack around it; the rolled loop keeps each copy small.
+template <int NMAX>
+__device__ __forceinline__ void warp_spd_inverse_rolled(float* A, int lda, float* X, int xr, int xc,
+                                                     int n) {
+  const int i = threadIdx.x & 31;
+  float w[NMAX];
+#pragma unroll
+  for (int k = 0; k < NMAX; ++k)
+    w[k] = (i < n && k < n) ? 0.5f * (A[i * lda + k] + A[k * lda + i]) : 0.f;
+  __syncwarp();
+#pragma unroll
+  for (int k = 0; k < NMAX; ++k)
+    if (i < n && k < n) A[i * lda + k] = w[k];
+  bool pd = true;
+  float rd = 0.f;  // 1 / d_i
+#pragma unroll 1
+  for (int j = 0; j < n; ++j) {
+    const float p = __shfl_sync(kFull, w[0], j);
+    pd = pd && p > 0.f;
+    float rp = __fdividef(1.f, p);
+    rp = fmaf(rp, fmaf(-p, rp, 1.f), rp);
+    if (i == j) rd = rp;
+    const float f = i != j ? w[0] * rp : 0.f;
+#pragma unroll
+    for (int k = 1; k < NMAX; ++k) w[k - 1] = fmaf(-f, __shfl_sync(kFull, w[k], j), w[k]);
+    w[NMAX - 1] = i != j ? -f : 1.f;
+  }
+  const float sc = pd ? rd : __int_as_float(0x7fc00000);
+#pragma unroll
+  for (int s = 0; s < NMAX; ++s) {
+    const int k = s - (NMAX - n);
+    if (i < n && k >= 0) X[i * xr + k * xc] = w[s] * sc;
+  }
+}
+
+// i / d for 0 <= i < 2^16 and 0 < d < 2^16 as one multiply-high by
+// ceil(2^32 / d), exact there (i·d < 2^32); set up before the time loop.
+struct Div {
+  unsigned mul;
+  int d;
+  __device__ explicit Div(int d_) : mul(d_ > 1 ? 0xffffffffu / (unsigned)d_ + 1u : 0u), d(d_) {}
+  __device__ __forceinline__ int q(int i) const {
+    return d > 1 ? (int)__umulhi((unsigned)i, mul) : i;
+  }
+};
+
+// A tile's coordinates, packed: first row, first column, kind (of the hat
+// tiles: 0 Q̂|q̂, 1 Ŝ, 2 R̂|r̂) and whether the tile holds column nx.
+__device__ __forceinline__ int tile_code(int a0, int c0, int kind = 0, bool swap = false) {
+  return a0 | c0 << 8 | kind << 16 | (int)swap << 18;
+}
+__device__ __forceinline__ int tile_a0(int code) { return code & 0xff; }
+__device__ __forceinline__ int tile_c0(int code) { return (code >> 8) & 0xff; }
+__device__ __forceinline__ int tile_kind(int code) { return (code >> 16) & 3; }
+__device__ __forceinline__ bool tile_swap(int code) { return (code >> 18) & 1; }
+
+// The copy width in floats of a knot array's rows: 16, 8 or 4 bytes, the
+// widest that its row width and base address allow (every knot's rows then
+// share that alignment).
+__device__ __forceinline__ int copy_width(const float* base, int cols) {
+  const auto p = reinterpret_cast<unsigned long long>(base);
+  return cols % 4 == 0 && p % 16 == 0 ? 4 : (cols % 2 == 0 && p % 8 == 0 ? 2 : 1);
+}
+
+template <int NT, int W>
+__device__ __forceinline__ void copy_block_rows(float* dst, int ld, const float* src, int rows,
+                                                const Div& per_row) {
+  const int n = per_row.d;
+#pragma unroll 1
+  for (int i = threadIdx.x; i < rows * n; i += NT) {
+    const int r = per_row.q(i), c = (i - r * n) * W;
+    cp_async<4 * W>(dst + r * ld + c, src + r * n * W + c);
+  }
+}
+
+// Copies the rows × cols block at src (row-major) into shared memory at dst
+// (row stride ld), asynchronously; `per_row` divides by cols / width.
+template <int NT>
+__device__ __forceinline__ void copy_knot_rows(float* dst, int ld, const float* src, int rows,
+                                               int w, const Div& per_row) {
+  if (w == 4) copy_block_rows<NT, 4>(dst, ld, src, rows, per_row);
+  else if (w == 2) copy_block_rows<NT, 2>(dst, ld, src, rows, per_row);
+  else copy_block_rows<NT, 1>(dst, ld, src, rows, per_row);
+}
+
+// The row copies of A, B, C and D: their widths, and division by their
+// copies per row, set up before the time loop.
+struct KnotCopies {
+  int w;  // the four copy widths, a byte each
+  Div A, B, C, D;
+  __device__ static Div per_row(const float* base, int cols) {
+    return Div(imax(cols / copy_width(base, cols), 1));
+  }
+  __device__ KnotCopies(const Knots& g, const RtDims& s)
+      : w(copy_width(g.A, s.nx()) | copy_width(g.B, s.nu()) << 8 | copy_width(g.C, s.nx()) << 16 |
+          copy_width(g.D, s.nu()) << 24),
+        A(per_row(g.A, s.nx())), B(per_row(g.B, s.nu())), C(per_row(g.C, s.nx())),
+        D(per_row(g.D, s.nu())) {}
+  __device__ int width(int k) const { return (w >> (8 * k)) & 0xff; }
+};
+
+// issue_knot with NT threads and the copies set up before the time loop.
+template <int NT>
+__device__ __forceinline__ void issue_knot_rows(const Knots& g, size_t kt, bool terminal,
+                                                float* M, float* Cd, float* Dm, const RtDims& s,
+                                                const KnotCopies& kc) {
+  const int nx = s.nx(), nu = s.nu(), nc = s.nc();
+  const int ldM = s.ldM(), ldV = s.ldV(), ldD = s.ldD(), cB = s.cB();
+  if (!terminal) {
+    copy_knot_rows<NT>(M, ldM, g.A + kt * nx * nx, nx, kc.width(0), kc.A);
+    copy_knot_rows<NT>(M + cB, ldM, g.B + kt * nx * nu, nx, kc.width(1), kc.B);
+    for (int i = threadIdx.x; i < nx; i += NT) cp_async<4>(M + i * ldM + nx, g.f + kt * nx + i);
+  }
+  copy_knot_rows<NT>(Cd, ldV, g.C + kt * nc * nx, nc, kc.width(2), kc.C);
+  for (int i = threadIdx.x; i < nc; i += NT) cp_async<4>(Cd + i * ldV + nx, g.d + kt * nc + i);
+  copy_knot_rows<NT>(Dm, ldD, g.D + kt * nc * nu, nc, kc.width(3), kc.D);
+}
+
+// x, hidden from the compiler's loop-invariant code motion: what is
+// computed from it stays inside the time loop. Hoisting every tile's
+// addresses out of the loop needed more than 255 registers and spilled.
+__device__ __forceinline__ int opaque(int x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// a[i] for a run-time i < MT, from registers (a[i] itself would put the
+// array in local memory).
+template <int MT>
+__device__ __forceinline__ int at(const int (&a)[MT], int i) {
+  int v = a[0];
+#pragma unroll
+  for (int k = 1; k < MT; ++k) v = i == k ? a[k] : v;
+  return v;
+}
+
+// The block's barrier: one warp synchronizes as a warp.
+template <int NT>
+__device__ __forceinline__ void bar_sync() {
+  if constexpr (NT == 32) __syncwarp();
+  else __syncthreads();
+}
+
+// Where the [Q S; · R] and [q; r] terms of a hat tile (a0, c0, kind) come
+// from: the matrix of its kind (Q, S or R) and the offset of the tile's
+// first entry in one knot's block of it, the masks of the tile's rows and
+// columns inside that block (the masks of the tile's outputs too), the tile
+// column that is column nx (q or r; -1 for none) and the vector's offset.
+// Set up once per tile, before the time loop: in the knot a term is a bit
+// test and a load.
+struct HatTerms {
+  int bits;  // rows | cols << 4 | (jv + 1) << 8 | kind << 12
+  int off, voff;
+  __device__ HatTerms(int a0, int c0, int kind, const RtDims& s) {
+    const int nx = s.nx(), nu = s.nu(), cB = s.cB();
+    const int r0 = kind == 2 ? cB : 0, nr = kind == 2 ? nu : nx;  // rows of the block in H
+    const int k0 = kind == 0 ? 0 : cB, nk = kind == 0 ? nx : nu;  // its columns in H
+    int rows = 0, cols = 0;
+    for (int i = 0; i < 4; ++i) {
+      if (a0 + i >= r0 && a0 + i < r0 + nr) rows |= 1 << i;
+      if (c0 + i >= k0 && c0 + i < k0 + nk) cols |= 1 << i;
+    }
+    const int jv = kind != 1 && c0 <= nx && nx < c0 + 4 ? nx - c0 : -1;
+    bits = rows | cols << 4 | (jv + 1) << 8 | kind << 12;
+    off = (a0 - r0) * (kind == 0 ? nx : nu) + c0 - k0;
+    voff = a0 - r0;
+  }
+  __device__ bool row(int i) const { return (bits >> i) & 1; }
+  __device__ bool col(int j) const { return (bits >> (4 + j)) & 1; }
+  __device__ int jv() const { return ((bits >> 8) & 15) - 1; }
+  __device__ int kind() const { return bits >> 12; }
+};
+
+// h = the hat tile's [Q S; · R] and [q; r] terms at knot kt (zero outside
+// its block), from device memory.
+__device__ __forceinline__ void load_hat_terms(const Knots& g, size_t kt, const HatTerms& ht,
+                                               const RtDims& s, float (&h)[4][4]) {
+  const int nx = s.nx(), nu = s.nu(), kind = ht.kind(), jv = ht.jv();
+  const int ld = kind == 0 ? nx : nu;
+  const float* M = (kind == 0 ? g.Q + kt * nx * nx
+                              : (kind == 1 ? g.S + kt * nx * nu : g.R + kt * nu * nu)) + ht.off;
+  const float* v = (kind == 0 ? g.q + kt * nx : g.r + kt * nu) + ht.voff;
+#pragma unroll
+  for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+    for (int jj = 0; jj < 4; ++jj)
+      h[ii][jj] = ht.row(ii) && ht.col(jj) ? __ldg(M + ii * ld + jj)
+                                            : (ht.row(ii) && jj == jv ? __ldg(v + ii) : 0.f);
+}
+
+// The tile passes of a knot and each thread's tiles in them (at most MT
+// per pass), fixed before the time loop.
+template <int MT>
+struct TileTable {
+  int p1[MT], p2[MT], sol[MT], acl[MT];  // codes
+  int n1, n2, nsol, nacl;                // this thread's count in each pass
+};
+
+// The tile counts of a knot's passes: Wᵀ over the rows of A, the hats
+// H = W·[A | f | B], the KKT solve, [Acl | yff]. A class gives each tile of
+// the largest of the first three its own thread.
+__host__ __device__ inline int tiles_w(const RtDims& s) { return cdiv(s.nx(), 4) * (s.ldM() / 4); }
+__host__ __device__ inline int tiles_sol(const RtDims& s) {
+  return cdiv(s.nk(), 4) * cdiv(s.m(), 4);
+}
+__host__ __device__ inline int tiles_acl(const RtDims& s) {
+  return cdiv(s.nx(), 4) * cdiv(s.m(), 4);
+}
+__host__ __device__ inline int knot_tiles(const RtDims& s) {
+  return imax(imax(tiles_w(s), s.n2()), tiles_sol(s));
+}
+
+template <int NT, int MT>
+__device__ TileTable<MT> tile_table(const RtDims& s) {
+  const int tid = threadIdx.x, nx = s.nx(), cB = s.cB(), nlow = s.nlow(), nq = s.nq();
+  const int ns = s.ns(), ncs = s.ncs(), ncr = s.ncr(), tq = s.tq(), cF4 = s.cF4();
+  const int nct1 = s.ldM() / 4, nctm = cdiv(s.m(), 4);
+  const int n1 = tiles_w(s), n2 = s.n2(), na = tiles_sol(s), nat = tiles_acl(s);
+  TileTable<MT> tt;
+  tt.n1 = tt.n2 = tt.nsol = tt.nacl = 0;
+  int wacl = tid - nq;  // [Acl | yff] starts past the threads that hold Q̂
+  if (wacl < 0) wacl += NT;
+#pragma unroll
+  for (int i = 0; i < MT; ++i) {
+    const int w = tid + i * NT;
+    tt.p1[i] = tt.p2[i] = tt.sol[i] = tt.acl[i] = 0;
+    if (w < n1) {  // Wᵀ tile: rows c0 (of Wᵀ), columns a0
+      tt.p1[i] = tile_code(4 * (w % nct1), 4 * (w / nct1));
+      tt.n1 = i + 1;
+    }
+    if (w < n2) {
+      int a0, c0, kind;
+      if (w < nlow) {  // w = ti·(ti+1)/2 + tj, tj <= ti
+        int ti = (int)((sqrtf(8.f * w + 1.f) - 1.f) * 0.5f);
+        if ((ti + 1) * (ti + 2) / 2 <= w) ++ti;
+        if (ti * (ti + 1) / 2 > w) --ti;
+        a0 = 4 * ti, c0 = 4 * (w - ti * (ti + 1) / 2), kind = 0;
+      } else if (w < nq) {
+        a0 = 4 * (w - nlow), c0 = 4 * tq, kind = 0;
+      } else if (w < nq + ns) {
+        a0 = 4 * ((w - nq) / ncs), c0 = cB + 4 * ((w - nq) % ncs), kind = 1;
+      } else {
+        a0 = cB + 4 * ((w - nq - ns) / ncr), c0 = cF4 + 4 * ((w - nq - ns) % ncr), kind = 2;
+      }
+      tt.p2[i] = tile_code(a0, c0, kind, kind != 1 && c0 <= nx && nx < c0 + 4);
+      tt.n2 = i + 1;
+    }
+    if (w < na) {
+      tt.sol[i] = tile_code(4 * (w / nctm), 4 * (w % nctm));
+      tt.nsol = i + 1;
+    }
+    const int wa = wacl + i * NT;
+    if (wa < nat) {
+      tt.acl[i] = tile_code(4 * (wa / nctm), 4 * (wa % nctm));
+      tt.nacl = i + 1;
+    }
+  }
+  return tt;
+}
+
+// One block per problem; NT threads, launch bounds that leave each thread
+// up to 255 registers (no spill): 8 blocks of 32 threads on an SM, 1 of 256.
+template <int NT, int NCH>
+__global__ void __launch_bounds__(NT, 256 / NT) riccati_backward_small(
+    Knots g, const float* __restrict__ mu_all, float* __restrict__ K_o,
+    float* __restrict__ Z_o, float* __restrict__ kff_o, float* __restrict__ zff_o,
+    float* __restrict__ yff_o, float* __restrict__ Acl_o, float* __restrict__ Vxx_o,
+    float* __restrict__ vx_o, int L, RtDims s, int refine_steps) {
+  constexpr int MT = NT == 256 ? 3 : 1;  // a pass's tiles per thread
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Smem<RtDims> l = Smem<RtDims>::make(smem, s);
+  const int nx = s.nx(), nu = s.nu(), nc = s.nc(), m = s.m(), nk = s.nk();
+  const int ldV = s.ldV(), ldM = s.ldM(), ldD = s.ldD(), ldT = s.ldT(), ldS = s.ldS();
+  const int cB = s.cB(), nq = s.nq();
+  const int tid = threadIdx.x;
+  const int b = blockIdx.x;
+  const float mu = mu_all[b];
+  const int kbuf = (int)(l.M[1] - l.M[0]);  // from one knot buffer to the other
+  const TileTable<MT> tt = tile_table<NT, MT>(s);
+  const HatTerms ht0(tile_a0(tt.p2[0]), tile_c0(tt.p2[0]), tile_kind(tt.p2[0]), s);
+  const Div dm(m), dnu(nu), dnc(imax(nc, 1));
+  const KnotCopies kc(g, s);
+
+  // V = v = 0, every pad zero, the KKT matrix's -µI block (never
+  // overwritten); the terminal knot's [A | f | B] stays zero
+  const int total = (int)Smem<RtDims>::floats(s);
+  for (int i = tid; i < total; i += NT) smem[i] = 0.f;
+  bar_sync<NT>();
+  for (int j = tid; j < nc; j += NT) l.K[(nu + j) * ldT + nu + j] = -mu;
+  {
+    const int o = ((L - 1) & 1) * kbuf;
+    issue_knot_rows<NT>(g, (size_t)b * L + L - 1, true, l.M[0] + o, l.Cd[0] + o,
+                        l.Dm[0] + o, s, kc);
+    cp_async_commit();
+  }
+
+  float* Wt = l.work;                       // Wᵀ, nx × ldM
+  float* sol = l.work;                      // nk × ldV
+  float* res = l.work + nk * ldV + kSlack;  // nk × ldV
+  const int fs = s.nf() * ldS;              // factorization scratch slots
+  float* Rinv = l.work;
+  float* RiDt = l.work + fs;
+  float* Ssym = l.work + 2 * fs;
+  float* Sinv = l.work + 3 * fs;
+  float* U = l.work + 4 * fs;
+
+  for (int t = L - 1; t >= 0; --t) {
+    const size_t kt = (size_t)b * L + t;
+    // this knot's buffer has arrived; after the barrier nobody reads the
+    // other one (the previous knot's), so the next knot goes there
+    cp_async_wait_all();
+    bar_sync<NT>();
+    if (t > 0) {
+      const int o = ((t - 1) & 1) * kbuf;
+      issue_knot_rows<NT>(g, kt - 1, false, l.M[0] + o, l.Cd[0] + o, l.Dm[0] + o, s, kc);
+      cp_async_commit();
+    }
+    const int o = (t & 1) * kbuf;
+    const float* Mc = l.M[0] + o;
+    const float* Cd = l.Cd[0] + o;
+    const float* Dm = l.Dm[0] + o;
+    // the hat terms of this thread's first hat tile, consumed after P1
+    float h0[4][4];
+    HatTerms ht = ht0;
+    ht.bits = opaque(ht.bits);
+    if (tt.n2 > 0) load_hat_terms(g, kt, ht, s, h0);
+
+    // P1: Wᵀ = V·[A | f | B] over the rows of A (V is symmetric), with v
+    // added to column nx: Wᵀ(:, nx) = V·f + v, so that the hat tiles that
+    // hold column nx take Mᵀv with it. [C | d] and D go to the KKT
+    // right-hand side and matrix meanwhile.
+#pragma unroll 1
+    for (int i = 0; i < tt.n1; ++i) {
+      const int code = opaque(at(tt.p1, i));
+      const int a0 = tile_a0(code), c0 = tile_c0(code);
+      float acc[4][4] = {};
+      mm_kk<4, 4, false>(acc, l.V + c0, ldV, Mc + a0, ldM, nx);
+      const int jf = nx - a0;  // column nx in this tile, if 0 <= jf < 4
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        if (c0 + ii >= nx) break;
+        const float v = l.V[(c0 + ii) * ldV + nx];
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          if (jj == jf) acc[ii][jj] += v;
+        *reinterpret_cast<float4*>(Wt + (c0 + ii) * ldM + a0) =
+            make_float4(acc[ii][0], acc[ii][1], acc[ii][2], acc[ii][3]);
+      }
+    }
+    for (int i = tid; i < nc * m; i += NT) {
+      const int j = dm.q(i), c = i - j * m;
+      l.rhs[(nu + j) * ldV + c] = -Cd[j * ldV + c];
+    }
+    for (int i = tid; i < nc * nu; i += NT) {
+      const int j = dnu.q(i), k = i - j * nu;
+      const float dv = Dm[j * ldD + k];
+      l.K[(nu + j) * ldT + k] = dv;
+      l.K[k * ldT + nu + j] = dv;
+    }
+    bar_sync<NT>();
+
+    // P2: H = W·[A | f | B] + [Q S; · R], with q̂ = q + Aᵀ(Vf + v) and
+    // r̂ = r + Bᵀ(Vf + v). A tile that holds column nx takes the product
+    // the other way round, [A | f | B]ᵀ·Wᵀ (the same H, as MᵀVM is
+    // symmetric, and Mᵀ(Vf + v) in column nx). Q̂|q̂ stays in the registers
+    // of thread tid < nq; -Ŝᵀ and -r̂ go to rhs, R̂ to the KKT matrix.
+    float qh[4][4];  // Q̂|q̂ on threads tid < nq, then [Vxx | vx]
+#pragma unroll 1
+    for (int i = 0; i < tt.n2; ++i) {
+      const int code = opaque(at(tt.p2, i));
+      const int a0 = tile_a0(code), c0 = tile_c0(code), kind = tile_kind(code);
+      if (i > 0) ht = HatTerms(a0, c0, kind, s);
+      float acc[4][4];
+      if (i == 0) {
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = h0[ii][jj];
+      } else {
+        load_hat_terms(g, kt, ht, s, acc);
+      }
+      const bool swap = tile_swap(code);
+      mm_kk<4, 4, false>(acc, swap ? Mc + a0 : Wt + a0, ldM, swap ? Wt + c0 : Mc + c0, ldM,
+                         nx);
+      // -Ŝᵀ to rhs (kind 1); R̂ to the KKT matrix and -r̂ to rhs (kind 2):
+      // the entries inside the tile's block, as its terms' masks say
+      if (kind == 1) {
+        float* d = l.rhs + (c0 - cB) * ldV + a0;
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            if (ht.row(ii) && ht.col(jj)) d[jj * ldV + ii] = -acc[ii][jj];
+      } else if (kind == 2) {
+        float* d = l.K + (a0 - cB) * ldT + c0 - cB;
+        float* e = l.rhs + (a0 - cB) * ldV + nx;
+        const int jv = ht.jv();
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            if (ht.row(ii) && ht.col(jj)) d[ii * ldT + jj] = acc[ii][jj];
+            if (ht.row(ii) && jj == jv) e[ii * ldV] = -acc[ii][jj];
+          }
+      }
+      if (i == 0 && kind == 0) {
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) qh[ii][jj] = acc[ii][jj];
+      }
+    }
+    bar_sync<NT>();
+
+    // T = KKT⁻¹, stored transposed: l.T[c·ldT + r] = T(r, c). Warp 0
+    // symmetrizes R̂ in the KKT matrix and inverts it; with no constraint
+    // rows T = R̂⁻¹ and the chain writes it there directly.
+    if (tid < 32) {
+      if (nc > 0) warp_spd_inverse_rolled<NCH>(l.K, ldT, Rinv, ldS, 1, nu);
+      else warp_spd_inverse_rolled<NCH>(l.K, ldT, l.T, 1, ldT, nu);
+    }
+    bar_sync<NT>();
+    if (nc > 0) {
+      for (int i = tid; i < nu * nc; i += NT) {
+        const int r = dnc.q(i), c = i - r * nc;
+        float acc = 0.f;
+#pragma unroll 2
+        for (int k = 0; k < nu; ++k) acc = fmaf(Rinv[r * ldS + k], Dm[c * ldD + k], acc);
+        RiDt[r * ldS + c] = acc;  // R̂⁻¹Dᵀ
+      }
+      bar_sync<NT>();
+      for (int i = tid; i < nc * nc; i += NT) {
+        const int r = dnc.q(i), c = i - r * nc;
+        float sij = 0.f, sji = 0.f;
+#pragma unroll 2
+        for (int k = 0; k < nu; ++k) {
+          sij = fmaf(Dm[r * ldD + k], RiDt[k * ldS + c], sij);
+          sji = fmaf(Dm[c * ldD + k], RiDt[k * ldS + r], sji);
+        }
+        const float dmu = r == c ? mu : 0.f;
+        Ssym[r * ldS + c] = 0.5f * ((dmu + sij) + (dmu + sji));  // sym(µI + D R̂⁻¹Dᵀ)
+      }
+      bar_sync<NT>();
+      if (tid < 32) warp_spd_inverse_rolled<NCH>(Ssym, ldS, Sinv, ldS, 1, nc);
+      bar_sync<NT>();
+      for (int i = tid; i < nu * nc + nc * nc; i += NT) {
+        if (i < nu * nc) {
+          const int r = dnc.q(i), c = i - r * nc;
+          float acc = 0.f;
+#pragma unroll 2
+          for (int k = 0; k < nc; ++k) acc = fmaf(RiDt[r * ldS + k], Sinv[k * ldS + c], acc);
+          U[r * ldS + c] = acc;
+          l.T[(nu + c) * ldT + r] = acc;  // T(r, nu+c) = U
+          l.T[r * ldT + nu + c] = acc;    // T(nu+c, r) = Uᵀ
+        } else {
+          const int r = dnc.q(i - nu * nc), c = i - nu * nc - r * nc;
+          l.T[(nu + c) * ldT + nu + r] = -Sinv[r * ldS + c];
+        }
+      }
+      bar_sync<NT>();
+      for (int i = tid; i < nu * nu; i += NT) {
+        const int r = dnu.q(i), c = i - r * nu;
+        float acc = 0.f;
+#pragma unroll 2
+        for (int k = 0; k < nc; ++k) acc = fmaf(U[r * ldS + k], RiDt[c * ldS + k], acc);
+        l.T[c * ldT + r] = Rinv[r * ldS + c] - acc;  // T11 = R̂⁻¹ - U·(R̂⁻¹Dᵀ)ᵀ
+      }
+      bar_sync<NT>();
+    }
+
+    // sol = T·rhs, then refine_steps rounds of sol += T·(rhs - KKT·sol);
+    // the last round writes the gains
+    float* K_t = K_o + kt * nu * nx;
+    float* Z_t = Z_o + kt * nc * nx;
+    for (int it = 0; it <= refine_steps; ++it) {
+      if (it > 0) {
+#pragma unroll 1
+        for (int i = 0; i < tt.nsol; ++i) {
+          const int code = opaque(at(tt.sol, i));
+          const int i0 = tile_a0(code), j0 = tile_c0(code);
+          float acc[4][4] = {};
+          mm_kk<4, 4, false>(acc, l.K + i0, ldT, sol + j0, ldV, nk);
+          // whole rows of 4: the pad columns past m stay zero (rhs's are)
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+            const int r = i0 + ii;
+            if (r >= nk) break;
+            const float4 b = *reinterpret_cast<const float4*>(l.rhs + r * ldV + j0);
+            *reinterpret_cast<float4*>(res + r * ldV + j0) =
+                make_float4(b.x - acc[ii][0], b.y - acc[ii][1], b.z - acc[ii][2],
+                            b.w - acc[ii][3]);
+          }
+        }
+        bar_sync<NT>();
+      }
+      const float* x = it > 0 ? res : l.rhs;
+      const bool last = it == refine_steps;
+#pragma unroll 1
+      for (int i = 0; i < tt.nsol; ++i) {
+        const int code = opaque(at(tt.sol, i));
+        const int i0 = tile_a0(code), j0 = tile_c0(code);
+        float acc[4][4] = {};
+        mm_kk<4, 4, false>(acc, l.T + i0, ldT, x + j0, ldV, nk);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii) {
+          const int r = i0 + ii;
+          if (r >= nk) break;
+          // a whole row of 4 of sol, read and written as one: the pad
+          // columns past m stay zero (those of rhs and res are)
+          float4* sp = reinterpret_cast<float4*>(sol + r * ldV + j0);
+          float v[4] = {acc[ii][0], acc[ii][1], acc[ii][2], acc[ii][3]};
+          if (it > 0) {
+            const float4 o = *sp;
+            v[0] = o.x + v[0], v[1] = o.y + v[1], v[2] = o.z + v[2], v[3] = o.w + v[3];
+          }
+          *sp = make_float4(v[0], v[1], v[2], v[3]);
+          if (!last) continue;
+          // the gains' row r: K or Z, and kff or zff in column nx
+          float* row = r < nu ? K_t + r * nx : Z_t + (r - nu) * nx;
+          float* ff = r < nu ? kff_o + kt * nu + r : zff_o + kt * nc + r - nu;
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int c = j0 + jj;
+            if (c < nx) row[c] = v[jj];
+            else if (c == nx) *ff = v[jj];
+          }
+        }
+      }
+      bar_sync<NT>();
+    }
+
+    // [Vxx | vx] = [Q̂ | q̂] - rhsᵀ·sol on the threads holding Q̂, which
+    // write each entry on and below the diagonal to both halves of V;
+    // [Acl | yff] = [A | f] + B·[K | kff] on the others (zero at the
+    // terminal knot). V is free after P1, and the next knot's barrier
+    // orders these writes before its reads.
+    if (tid < nq) {
+      const int code = opaque(tt.p2[0]);
+      const int a0 = tile_a0(code), c0 = tile_c0(code);
+      mm_kk<4, 4, true>(qh, l.rhs + a0, ldV, sol + c0, ldV, nk);
+      float* V_t = Vxx_o + kt * nx * nx;
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int r = a0 + ii, c = c0 + jj;
+          const float v = qh[ii][jj];
+          if (r >= nx) continue;
+          if (c == nx) {
+            l.V[r * ldV + nx] = v;
+            vx_o[kt * nx + r] = v;
+          } else if (c < nx && (c0 < a0 || (c0 == a0 && c <= r))) {
+            l.V[r * ldV + c] = v;
+            l.V[c * ldV + r] = v;
+            V_t[r * nx + c] = v;
+            V_t[c * nx + r] = v;
+          }
+        }
+    }
+    float* Acl_t = Acl_o + kt * nx * nx;
+#pragma unroll 1
+    for (int i = 0; i < tt.nacl; ++i) {
+      const int code = opaque(at(tt.acl, i));
+      const int i0 = tile_a0(code), j0 = tile_c0(code);
+      // [A | f] by whole rows of 4 (its columns past m, up to cB, are zero)
+      float acc[4][4];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const float4 a = i0 + ii < nx ? *reinterpret_cast<const float4*>(Mc + (i0 + ii) * ldM + j0)
+                                      : make_float4(0.f, 0.f, 0.f, 0.f);
+        acc[ii][0] = a.x, acc[ii][1] = a.y, acc[ii][2] = a.z, acc[ii][3] = a.w;
+      }
+      mm_ik<4, 4>(acc, Mc + i0 * ldM + cB, ldM, nx - i0, sol + j0, ldV, nu);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int r = i0 + ii, c = j0 + jj;
+          if (r < nx && c < nx) Acl_t[r * nx + c] = acc[ii][jj];
+          else if (r < nx && c == nx) yff_o[kt * nx + r] = acc[ii][jj];
+        }
+    }
+  }
+}
+
 // Host side: which instantiation serves which widths, the shared-memory
 // limit, the launch.
 
-using RtDims = Dims<kRt, kRt, kRt>;
 using BenchDims = Dims<56, 22, 22>;  // lqr56, the bench's Talos-reduced widths
 using WalkDims = Dims<56, 22, 0>;    // the talos walk: ndx = 56, nu = 22, no constraints
 constexpr int kMaxDevices = 64;
 
-// Which instantiation serves these widths: 1 the bench's, 2 the walk's,
-// 0 the one that reads its widths at launch.
-int variant_of(int nx, int nu, int nc) {
-  if (nx == 56 && nu == 22 && nc == 22) return 1;
-  if (nx == 56 && nu == 22 && nc == 0) return 2;
-  return 0;
+// The small-width classes: threads per block × chain length. Each takes the
+// fewest threads that give every tile of a knot's largest pass its own
+// thread (256 hold more than one), and the shortest chain >= max(nu, nc).
+constexpr int kClassThreads[] = {32, 64, 128, 256};
+constexpr int kClassChains[] = {8, 16, 32};
+constexpr int kNumThreads = 4, kNumChains = 3, kNumSmall = kNumThreads * kNumChains;
+
+struct Launch {
+  Knots g;
+  const float* mu;
+  float *K, *Z, *kff, *zff, *yff, *Acl, *Vxx, *vx;
+  int batch, L;
+  RtDims s;
+  int refine_steps;
+  size_t smem;
+  cudaStream_t stream;
+};
+
+template <int NT, int NCH>
+void launch_small(const Launch& a) {
+  riccati_backward_small<NT, NCH><<<a.batch, NT, a.smem, a.stream>>>(
+      a.g, a.mu, a.K, a.Z, a.kff, a.zff, a.yff, a.Acl, a.Vxx, a.vx, a.L, a.s, a.refine_steps);
 }
 
-const void* pick(int variant) {
-  switch (variant) {
-    case 1: return (const void*)&riccati_backward_kernel<56, 22, 22>;
-    case 2: return (const void*)&riccati_backward_kernel<56, 22, 0>;
-    default: return (const void*)&riccati_backward_kernel<kRt, kRt, kRt>;
-  }
+// One entry per instantiation: 0 the bench's, 1 the walk's, 2 + c the
+// small-width class c = (index of its threads) · 3 + (index of its chain).
+struct Kernel {
+  const void* fn;
+  int threads;
+  void (*launch)(const Launch&);
+};
+
+template <int NT, int NCH>
+Kernel small_kernel() {
+  return {(const void*)&riccati_backward_small<NT, NCH>, NT, &launch_small<NT, NCH>};
+}
+
+const Kernel& kernel_at(int index) {
+  static const Kernel table[2 + kNumSmall] = {
+      {(const void*)&riccati_backward_kernel<56, 22, 22>, kThreads, nullptr},
+      {(const void*)&riccati_backward_kernel<56, 22, 0>, kThreads, nullptr},
+      small_kernel<32, 8>(),   small_kernel<32, 16>(),  small_kernel<32, 32>(),
+      small_kernel<64, 8>(),   small_kernel<64, 16>(),  small_kernel<64, 32>(),
+      small_kernel<128, 8>(),  small_kernel<128, 16>(), small_kernel<128, 32>(),
+      small_kernel<256, 8>(),  small_kernel<256, 16>(), small_kernel<256, 32>(),
+  };
+  return table[index];
+}
+
+// Which instantiation serves these widths, as the C entry reports it: 1 the
+// bench's, 2 the walk's, 100·threads + chain for a small-width class; -1 if
+// nu is not in 1..32 or nc not in 0..32 (a factor's rows are a warp's
+// lanes), -2 if the Q̂ tiles (4 × 4 each) outnumber 256 threads (nx > 84).
+int variant_of(int nx, int nu, int nc) {
+  if (nu < 1 || nu > kChainMax || nc < 0 || nc > kChainMax) return -1;
+  const RtDims s{nx, nu, nc};
+  if (nx < 0 || s.nq() > kThreads) return -2;
+  if (nx == 56 && nu == 22 && nc == 22) return 1;
+  if (nx == 56 && nu == 22 && nc == 0) return 2;
+  const int tiles = knot_tiles(s), chain = imax(nu, nc);
+  int threads = kClassThreads[kNumThreads - 1];
+  for (int t : kClassThreads)
+    if (t >= tiles) {
+      threads = t;
+      break;
+    }
+  int len = kClassChains[kNumChains - 1];
+  for (int c : kClassChains)
+    if (c >= chain) {
+      len = c;
+      break;
+    }
+  return 100 * threads + len;
+}
+
+// The kernel_at index of a variant >= 1.
+int index_of(int variant) {
+  if (variant <= 2) return variant - 1;
+  int ti = 0, ci = 0;
+  while (kClassThreads[ti] != variant / 100) ++ti;
+  while (kClassChains[ci] != variant % 100) ++ci;
+  return 2 + ti * kNumChains + ci;
 }
 
 size_t smem_bytes(int nx, int nu, int nc) {
@@ -682,15 +1409,15 @@ size_t smem_bytes(int nx, int nu, int nc) {
 
 // Raises an instantiation's dynamic shared-memory limit on the current
 // device, once per device and only when `smem` is more than was set before.
-cudaError_t ensure_smem_limit(int variant, size_t smem) {
-  static size_t smem_limit[3][kMaxDevices] = {};
+cudaError_t ensure_smem_limit(int index, size_t smem) {
+  static size_t smem_limit[2 + kNumSmall][kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
   if (dev >= kMaxDevices) return cudaErrorInvalidDevice;
-  size_t& lim = smem_limit[variant][dev];
+  size_t& lim = smem_limit[index][dev];
   if (smem > lim) {
-    err = cudaFuncSetAttribute(pick(variant), cudaFuncAttributeMaxDynamicSharedMemorySize,
+    err = cudaFuncSetAttribute(kernel_at(index).fn, cudaFuncAttributeMaxDynamicSharedMemorySize,
                                (int)smem);
     if (err != cudaSuccess) return err;
     lim = smem;
@@ -709,26 +1436,24 @@ long long riccati_backward_smem_bytes(int nx, int nu, int nc) {
 
 // Which instantiation serves these dims: 1 the bench widths (nx = 56,
 // nu = nc = 22) and 2 the walk's (nx = 56, nu = 22, nc = 0), each fixed
-// at compile time, 0 the one that reads its widths at run time; -1 if nu
-// or nc exceeds 32 (a factor's rows are a warp's lanes), -2 if the Q̂
-// tiles (4 × 4 each) outnumber the block's threads.
-int riccati_backward_variant(int nx, int nu, int nc) {
-  if (nu > kChainMax || nc > kChainMax) return -1;
-  if (RtDims{nx, nu, nc}.nq() > kThreads) return -2;
-  return variant_of(nx, nu, nc);
-}
+// at compile time; 100·threads + chain for the small-width class that reads
+// its widths at launch (fused_riccati.backward_plan says the same); -1 if
+// nu is not in 1..32 or nc not in 0..32, -2 if nx > 84.
+int riccati_backward_variant(int nx, int nu, int nc) { return variant_of(nx, nu, nc); }
 
 // Blocks of the kernel that one SM of the current device holds at once at
-// these dims (kThreads threads and the shared memory above per block), as
-// cudaOccupancyMaxActiveBlocksPerMultiprocessor gives it; a cudaError as
-// a negative number.
+// these dims (the instantiation's threads and the shared memory above per
+// block), as cudaOccupancyMaxActiveBlocksPerMultiprocessor gives it; a
+// cudaError as a negative number.
 int riccati_backward_blocks_per_sm(int nx, int nu, int nc) {
   const int variant = variant_of(nx, nu, nc);
+  if (variant < 0) return -(int)cudaErrorInvalidValue;
+  const Kernel& k = kernel_at(index_of(variant));
   const size_t smem = smem_bytes(nx, nu, nc);
-  cudaError_t err = ensure_smem_limit(variant, smem);
+  cudaError_t err = ensure_smem_limit(index_of(variant), smem);
   if (err != cudaSuccess) return -(int)err;
   int blocks = 0;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, pick(variant), kThreads, smem);
+  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&blocks, k.fn, k.threads, smem);
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
@@ -742,7 +1467,8 @@ int riccati_backward_f32(const void* Q, const void* S, const void* R, const void
                          void* stream) {
   const size_t smem = smem_bytes(nx, nu, nc);
   const int variant = variant_of(nx, nu, nc);
-  const cudaError_t err = ensure_smem_limit(variant, smem);
+  if (variant < 0) return (int)cudaErrorInvalidValue;
+  const cudaError_t err = ensure_smem_limit(index_of(variant), smem);
   if (err != cudaSuccess) return (int)err;
   const Knots g{(const float*)Q, (const float*)S, (const float*)R, (const float*)q,
                 (const float*)r, (const float*)A, (const float*)Bm, (const float*)f,
@@ -757,9 +1483,10 @@ int riccati_backward_f32(const void* Q, const void* S, const void* R, const void
         g, (const float*)mu, out(K), out(Z), out(kff), out(zff), out(yff), out(Acl),
         out(Vxx), out(vx), L, WalkDims{nx, nu, nc}, refine_steps);
   } else {
-    riccati_backward_kernel<kRt, kRt, kRt><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-        g, (const float*)mu, out(K), out(Z), out(kff), out(zff), out(yff), out(Acl),
-        out(Vxx), out(vx), L, RtDims{nx, nu, nc}, refine_steps);
+    kernel_at(index_of(variant))
+        .launch({g, (const float*)mu, out(K), out(Z), out(kff), out(zff), out(yff), out(Acl),
+                 out(Vxx), out(vx), batch, L, RtDims{nx, nu, nc}, refine_steps, smem,
+                 (cudaStream_t)stream});
   }
   return (int)cudaGetLastError();
 }

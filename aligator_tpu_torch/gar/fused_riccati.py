@@ -26,6 +26,7 @@ the kernel or raises; there is no fallback.
 from __future__ import annotations
 
 import functools
+from typing import NamedTuple
 
 import torch
 
@@ -158,15 +159,93 @@ def _backward_variant(nx: int, nu: int, nc: int) -> int:
     return cuda_build.load("riccati_backward").riccati_backward_variant(nx, nu, nc)
 
 
+# The backward kernel's small-width classes (csrc/riccati_backward.cu): the
+# threads of a block and the rows of its Gauss-Jordan chain.
+BACKWARD_THREADS = (32, 64, 128, 256)
+BACKWARD_CHAINS = (8, 16, 32)
+BACKWARD_MAX_NX = 84  # one tile of Q̂ per thread of 256
+_COMPILED = {(56, 22, 22): "bench", (56, 22, 0): "walk"}
+
+
+class BackwardPlan(NamedTuple):
+    """An instantiation of the backward kernel: ``kernel`` is "bench" or
+    "walk" (``riccati_backward_kernel`` with those widths compiled in, 256
+    threads, a chain of 22) or "small" (``riccati_backward_small<threads,
+    chain>``, widths read at launch)."""
+
+    kernel: str
+    threads: int
+    chain: int
+
+    @property
+    def code(self) -> int:
+        """What the C entry ``riccati_backward_variant`` returns for it."""
+        return {"bench": 1, "walk": 2}.get(self.kernel, 100 * self.threads + self.chain)
+
+    def __str__(self) -> str:
+        return (f"small<{self.threads}, {self.chain}>" if self.kernel == "small"
+                else self.kernel)
+
+
+def _r4(n: int) -> int:
+    return (n + 3) & ~3
+
+
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def backward_tiles(nx: int, nu: int, nc: int) -> dict:
+    """The 4 × 4 tiles of each pass of a knot of the backward kernel, as
+    ``csrc/riccati_backward.cu`` lays them out: ``"w"`` Wᵀ = V·[A | f | B]
+    over the rows of A, ``"hats"`` H = W·[A | f | B] (``"q"`` of them the
+    tiles of Q̂|q̂, each kept by its own thread), ``"solve"`` the KKT
+    solve."""
+    m, cB = nx + 1, _r4(nx + 1)
+    ldM = _r4(cB + nu)
+    nt = _cdiv(nx, 4)
+    nq = nt * (nt + 1) // 2 + nx // 4
+    hats = nq + nt * ((ldM - cB) // 4) + _cdiv(nu, 4) * ((ldM - (nx & ~3)) // 4)
+    return dict(w=nt * (ldM // 4), hats=hats, q=nq, solve=_cdiv(nu + nc, 4) * _cdiv(m, 4))
+
+
+def backward_plan(nx: int, nu: int, nc: int) -> BackwardPlan:
+    """Which instantiation of the backward kernel serves these widths: the
+    compiled bench (56, 22, 22) or walk (56, 22, 0) widths, else the
+    small-width class with the fewest threads of ``BACKWARD_THREADS`` that
+    give every tile of a knot's largest pass (Wᵀ, the hats or the solve)
+    its own thread (256 past that) and the shortest chain of
+    ``BACKWARD_CHAINS`` that holds max(nu, nc). Raises ``ValueError`` for
+    widths the kernel does not take: nu outside 1..32, nc outside 0..32,
+    nx outside 0..84. The C entry ``riccati_backward_variant`` answers
+    ``.code``; chip_smoke.py holds the two together."""
+    if not (1 <= nu <= 32 and 0 <= nc <= 32):
+        raise ValueError(f"nu={nu}, nc={nc}: the backward kernel takes 1 <= nu <= 32 and "
+                         f"0 <= nc <= 32 (a factor's rows are a warp's lanes)")
+    if not 0 <= nx <= BACKWARD_MAX_NX:
+        raise ValueError(f"nx={nx}: the backward kernel takes nx <= {BACKWARD_MAX_NX} "
+                         f"(one tile of Q̂ per thread)")
+    name = _COMPILED.get((nx, nu, nc))
+    if name:
+        return BackwardPlan(name, 256, 22)
+    t = backward_tiles(nx, nu, nc)
+    tiles = max(t["w"], t["hats"], t["solve"])
+    threads = next((n for n in BACKWARD_THREADS if n >= tiles), BACKWARD_THREADS[-1])
+    chain = next(c for c in BACKWARD_CHAINS if c >= max(nu, nc))
+    return BackwardPlan("small", threads, chain)
+
+
 def backward_variant(nx: int, nu: int, nc: int) -> str:
-    """Which instantiation of the backward kernel serves these dims, widths
-    fixed at compile time: ``"bench"`` (nx = 56, nu = nc = 22) or ``"walk"``
-    (nx = 56, nu = 22, nc = 0, the talos walk); or ``"runtime"`` (widths
-    read at launch)."""
+    """The name of the instantiation of the backward kernel that the C
+    entry picks for these dims: ``"bench"`` (nx = 56, nu = nc = 22),
+    ``"walk"`` (nx = 56, nu = 22, nc = 0), both with their widths compiled
+    in, or ``"small<threads, chain>"`` (widths read at launch)."""
     v = _backward_variant(nx, nu, nc)
     if v < 0:
         raise ValueError(f"dims nx={nx}, nu={nu}, nc={nc} are outside the backward kernel")
-    return {1: "bench", 2: "walk"}.get(v, "runtime")
+    if v <= 2:
+        return {1: "bench", 2: "walk"}[v]
+    return str(BackwardPlan("small", v // 100, v % 100))
 
 
 def backward_blocks_per_sm(nx: int, nu: int, nc: int) -> int:

@@ -7,7 +7,9 @@ Run from the root of the repository on a machine with one CUDA card:
 It builds the hand-written kernels from ``aligator_tpu_torch/csrc`` (nvcc,
 sm_90a, into ``build/kernels``), holds each kernel against its plain
 torch version on the card (every instantiation of K1 and K2, K2 at each
-copy width), times K1 and K2 at B = 256 and 64 and K2's two halves
+copy width; K1's twelve small-width classes on both sides of each class
+boundary, and its class choice in Python against the C entry at every
+width), times K1 and K2 at B = 256 and 64 and K2's two halves
 beside their bounds, runs the layout probe (the port of
 ``scripts/probe_mosaic.py``: each probe body against its plain version,
 then timed per construct beside its library call), drives the main path
@@ -27,7 +29,7 @@ filter + nonlinear + box and exact-Hessian solves on the card against the
 CPU (both in a child process beside the walk's solves); then the examples
 of slice 5: the quadrotor (an SE(3) free flyer past a convex mug and a
 box pillar, N = 60) as 16 perturbed scenarios in float32 through K1's
-instantiation for widths read at launch and K2 (nx = 12, nu = 4, nc = 6),
+small-width kernel (class <32, 8>) and K2 (nx = 12, nu = 4, nc = 6),
 against the serial path, a float64 solve and its physical outcomes, and
 the seven other examples (the LQR, the SE(2) car, the cartpole, the
 acrobot, the UR5 reach, obstacle and ballistic throw) in float64 on the
@@ -248,6 +250,11 @@ def ptx_label(name: str) -> str:
     return ident
 
 
+# ptxas's lines on each kernel and device function of this run's build, by
+# ptx_label (filled by print_ptxas)
+PTXAS: dict = {}
+
+
 def print_ptxas(logs: dict) -> None:
     """Registers and spills of every kernel and device function, by name."""
     for src, log in logs.items():
@@ -258,6 +265,33 @@ def print_ptxas(logs: dict) -> None:
                 fn = ptx_label(m.group(1))
             elif "registers" in line or "spill" in line:
                 print(f"  {src} {fn}: {line.strip()}")
+                PTXAS.setdefault(fn, []).append(line.strip())
+
+
+def ptxas_of(label: str) -> str:
+    """Registers and spills of one function, as ptxas reported them."""
+    lines = PTXAS.get(label, [])
+    regs = next((m.group(0) for ln in lines for m in [re.search(r"\d+ registers", ln)] if m),
+                "registers not reported")
+    spill = next((m.group(0) for ln in lines
+                  for m in [re.search(r"\d+ bytes spill stores, \d+ bytes spill loads", ln)] if m),
+                 "spills not reported")
+    return f"{regs}, {spill}"
+
+
+def small_spills() -> tuple:
+    """(bytes of spill stores, of spill loads, functions) over the small-width
+    instantiations of K1 and their chains."""
+    st = ld = n = 0
+    for label, lines in PTXAS.items():
+        if not label.startswith(("riccati_backward_small<", "warp_spd_inverse_rolled<")):
+            continue
+        n += 1
+        for ln in lines:
+            m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+            if m:
+                st, ld = st + int(m.group(1)), ld + int(m.group(2))
+    return st, ld, n
 
 
 def check(ok: bool, what: str) -> None:
@@ -366,6 +400,134 @@ def k2_halves(g, v, x0, l0):
 K1_REFERENCE_BEHAVIOUR = {(NX, NU, NU, 1e-6): "reference behaviour (the TPU kernel fails here too)"}
 
 
+def k1_plan_agrees() -> None:
+    """fused_riccati.backward_plan (pure Python) and the C entry
+    riccati_backward_variant name the same instantiation, or both refuse,
+    at every nx in 0..85, nu and nc in 0..33."""
+    lib = cuda_build.load("riccati_backward")
+    n = 0
+    for nx in range(86):
+        for nu in range(34):
+            for nc in range(34):
+                try:
+                    want = FR.backward_plan(nx, nu, nc).code
+                except ValueError:
+                    want = -1
+                got = lib.riccati_backward_variant(nx, nu, nc)
+                check((got < 0) == (want < 0) and (want < 0 or got == want),
+                      f"backward_plan({nx}, {nu}, {nc}) -> {want}, the C entry {got}")
+                n += 1
+    print(f"K1 backward_plan agrees with riccati_backward_variant at all {n} widths "
+          f"(nx 0..85, nu and nc 0..33)")
+
+
+def class_boundary_widths() -> list:
+    """(nx, nu, nc) on each side of each boundary of K1's small-width
+    classes, within shared memory: max(nu, nc) at 1|8, 9|16 and 17|32 (the
+    chain classes) with nc = 0 and nc = nu, and nc = 17 and 32 at nu = 1
+    (the only widths of the classes <32, 32> and <64, 32>); for each the
+    widest nx whose knot has at most 32, 64 and 128 tiles in its largest
+    pass and the next nx (the thread classes), and nx = 84."""
+    out = []
+    pairs = [(nu, nc) for nu in (1, 8, 9, 16, 17, 32) for nc in (0, nu)] + [(1, 17), (1, 32)]
+    for nu, nc in pairs:
+        tiles = {nx: max(FR.backward_tiles(nx, nu, nc)[k] for k in ("w", "hats", "solve"))
+                 for nx in range(1, FR.BACKWARD_MAX_NX + 1)}
+        xs = {FR.BACKWARD_MAX_NX}
+        for b in FR.BACKWARD_THREADS[:-1]:
+            lo = max((nx for nx, t in tiles.items() if t <= b), default=None)
+            if lo is not None:
+                xs.update({lo, min(lo + 1, FR.BACKWARD_MAX_NX)})
+        for nx in sorted(xs):
+            if (FR.backward_plan(nx, nu, nc).kernel == "small"
+                    and FR._backward_smem_bytes(nx, nu, nc) <= FR.MAX_SMEM_BYTES):
+                out.append((nx, nu, nc))
+    return out
+
+
+def held_by_backward_error(what, knots, mu, g, v, nu, over) -> str:
+    """A K1 output off its plain version where the explicit-inverse KKT
+    solve loses digits (nc > 0 at µ = 1e-6: T11 = R̂⁻¹ - U·(R̂⁻¹Dᵀ)ᵀ cancels
+    to O(µ), C5), held instead as the jump's calls are: every finite knot's
+    backward error within max(BACKWARD_TOL, nu·u·κ(R̂)), u = 2⁻²⁴; a knot
+    that breaks down (NaN, as the reference kernel's elimination of S does
+    there) is counted, not gated. Returns the line that reports it."""
+    zero = {f: torch.nan_to_num(getattr(knots, f), nan=0.0) for f in ("A", "B", "f")}
+    eta, ratio = k1_backward_error(knots._replace(**zero), mu, g, v)
+    eta, ratio = eta.cpu().numpy(), ratio.cpu().numpy()
+    with np.errstate(divide="ignore", invalid="ignore"):
+        kappa = np.where(ratio > 0, 1.0 / ratio, np.inf)
+    bound = np.maximum(BACKWARD_TOL, nu * 2.0 ** -24 * kappa)
+    fin = ~np.isnan(eta)
+    top = float((eta[fin] / bound[fin]).max()) if fin.any() else 0.0
+    check(top <= 1.0, f"{what}: backward error {top:.3f} of its bound")
+    over = json.dumps({k: round(x, 2) for k, x in over.items()})
+    return (f"{what}: off its plain version by {over} x the gate; backward error <= "
+            f"{top:.3f} of max({BACKWARD_TOL:g}, nu*u*kappa(R^)) over {int(fin.sum())} knots, "
+            f"{int((~fin).sum())} knots broken down "
+            f"(kappa(R^) up to {float(kappa[fin].max()) if fin.any() else float('nan'):.3g})")
+
+
+def k1_class_boundaries(dev) -> None:
+    """K1's small-width kernel against its plain version on small random
+    LQs (B = 2, N = 6) on each side of every class boundary
+    (``class_boundary_widths``), at µ = 1e-2 and 1e-6 (1e-2 alone where
+    nc > nu); every class of the twelve is among them. Each output is
+    gated at the larger of the small cases' absolute gate (gains 2e-4, Vxx
+    and vx 1e-3) and the bench's 1e-4·max|·|: at nc = nu and µ = 1e-6 the
+    multipliers reach ~3e3 (Z at nx = 16, nu = nc = 8), where float32
+    rounding alone exceeds 2e-4. Where nc > 0 at µ = 1e-6 an output is off
+    by more than that (the explicit inverse's cancellation; the kernel that
+    served these widths before erred by as much on the same inputs), the
+    case is held by its backward error (``held_by_backward_error``) and
+    printed."""
+    rng = np.random.default_rng(11)
+    seen, worst, held = {}, 0.0, []
+    for nx, nu, nc in class_boundary_widths():
+        plan = FR.backward_plan(nx, nu, nc)
+        check(FR.backward_variant(nx, nu, nc) == str(plan), f"K1 instantiation at {nx, nu, nc}")
+        lq = lqr_from_numpy(random_lq_arrays(rng, 2, 6, nx, nu, nc), device=dev,
+                            dtype=torch.float32)
+        knots = knots_of(lq)
+        # more constraint rows than controls leave nc - nu directions held by
+        # µ alone (S = µI + D·R̂⁻¹Dᵀ has rank nu + those µ): well posed in
+        # float32 at the solvers' µ (the quadrotor's 1e-2 to 1e-4), not at 1e-6
+        for mu_val in (1e-2, 1e-6) if nc <= nu else (1e-2,):
+            mu = torch.full((2,), mu_val, device=dev)
+            gk, vk = FR.backward_sweep_batched(knots, mu)
+            torch.cuda.synchronize()
+            gp, vp = FR.backward_sweep_batched_ref(knots, mu)
+            what = f"K1 {plan} at nx={nx} nu={nu} nc={nc} mu={mu_val:g}"
+            over = {}
+            for name, atol in (("kff", 2e-4), ("zff", 2e-4), ("yff", 2e-4), ("K", 2e-4),
+                               ("Z", 2e-4), ("Acl", 2e-4), ("Vxx", 1e-3), ("vx", 1e-3)):
+                a, b = (getattr(gk, name), getattr(gp, name)) if hasattr(gk, name) else (
+                    getattr(vk, name), getattr(vp, name))
+                e, gate = max_err(a, b), max(atol, tol(b, 0.0, "rel"))
+                if not e <= gate:
+                    over[name] = e / gate
+                else:
+                    worst = max(worst, e / gate)
+            if over and nc > 0 and mu_val < 1e-4:
+                held.append(held_by_backward_error(what, knots, mu, gk, vk, nu, over))
+            else:
+                check(not over, f"{what}: error over its gate by {json.dumps(over)}")
+        seen.setdefault(str(plan), []).append((nx, nu, nc))
+    want = {f"small<{t}, {c}>" for t in FR.BACKWARD_THREADS for c in FR.BACKWARD_CHAINS}
+    check(set(seen) == want, f"every small-width class checked: {sorted(seen)}")
+    print(f"kernels K1 class boundaries: {sum(map(len, seen.values()))} widths, largest "
+          f"error {worst:.3f} of its gate; {len(held)} cases at nc > 0, mu = 1e-6 held by their "
+          f"backward error instead (the explicit inverse's cancellation, C5):")
+    for line in held:
+        print(f"  {line}")
+    for t in FR.BACKWARD_THREADS:
+        for c in FR.BACKWARD_CHAINS:
+            ws = seen[f"small<{t}, {c}>"]
+            print(f"  small<{t}, {c}> ({ptxas_of(f'riccati_backward_small<{t}, {c}>')}; "
+                  f"{FR.backward_blocks_per_sm(*ws[0])} blocks per SM at {ws[0]}): "
+                  + " ".join(f"{w[0]}/{w[1]}/{w[2]}" for w in ws))
+
+
 def kernels_phase(dev):
     """K1 and K2 against their plain versions on the card. Returns the
     per-kernel report at the bench widths."""
@@ -374,8 +536,8 @@ def kernels_phase(dev):
     # (B, N, nx, nu, nc, µ, tolerance mode): the small cases carry
     # test_gar_pallas.py's float32 tolerances (gains 2e-4, Vxx 1e-3, xs
     # 1e-3), as absolute errors, at nc = nu - 1, nc < nu - 1 and nc = 0 and
-    # at both of its µ; they run K1's instantiation for widths read at
-    # launch. At the bench widths (the instantiation with compiled widths;
+    # at both of its µ; they run K1's small-width kernel. At the bench
+    # widths (the instantiation with compiled widths;
     # N = 100, entries of Vxx up to ~1e3) the same float32 rounding
     # accumulates over 100 steps, so the bound is relative to the largest
     # entry of each output: 1e-4·max|·| (~840 ulp), at µ = 1e-6 as at 1e-2.
@@ -424,7 +586,10 @@ def kernels_phase(dev):
                             err_b=max(errs_b.values()), err_f=max(errs_f.values()),
                             dims=(Bsz, N + 1, nx, nu, nc)))
 
-    check(variants == {"bench", "runtime"}, f"both K1 instantiations checked: {variants}")
+    check("bench" in variants and any(v.startswith("small<") for v in variants),
+          f"K1's bench and small-width kernels checked: {variants}")
+    k1_plan_agrees()
+    k1_class_boundaries(dev)
 
     # K2 alone: the talos walk's widths (nc = 0, N = 195), the bench case's
     # first 8 problems copied 4 B and 8 B past a 16-byte boundary, odd and
@@ -1564,14 +1729,19 @@ def _examples_child(conn, names, device) -> None:
 
 
 
-def k_widths_check(dev, label, Bsz, N, nx, nu, nc, seed, mus, variant, suffix, path,
-                   instantiation):
+def k_widths_check(dev, label, Bsz, N, nx, nu, nc, seed, mus, suffix, path, b256=True):
     """K1 and K2 at one path's widths: against their plain versions on
     random inputs under the gate 1e-4·max|·| at each µ of ``mus``, then
-    timed at the first beside their bounds. Returns the path's two kernel
-    rows (``riccati_backward_<suffix>``, ``riccati_forward_<suffix>``)."""
+    timed at the first beside their bounds, and (``b256``) K1 held and
+    timed again at B = 256 (random inputs of the same widths); its blocks
+    per SM, registers and spills printed. Returns the path's two kernel rows
+    (``riccati_backward_<suffix>``, ``riccati_forward_<suffix>``)."""
+    plan = FR.backward_plan(nx, nu, nc)
+    variant = str(plan)
     got = FR.backward_variant(nx, nu, nc)
     check(got == variant, f"the {label} widths take K1's {variant} instantiation: {got}")
+    instantiation = (f"riccati_backward_small<{plan.threads}, {plan.chain}>"
+                     if plan.kernel == "small" else f"riccati_backward_kernel<{nx}, {nu}, {nc}>")
     lq = lqr_from_numpy(random_lq_arrays(np.random.default_rng(seed), Bsz, N, nx, nu, nc),
                         device=dev, dtype=torch.float32)
     knots = knots_of(lq)
@@ -1596,32 +1766,53 @@ def k_widths_check(dev, label, Bsz, N, nx, nu, nc, seed, mus, variant, suffix, p
     k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
     b1, by1 = bound_ms(*backward_cost(Bsz, L, nx, nu, nc, 1))
     b2, by2 = bound_ms(*forward_cost(Bsz, L, nx, nu, nc))
+    per_sm = FR.backward_blocks_per_sm(nx, nu, nc)
+    ptx = ptxas_of(instantiation)
     print(f"{label} widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, bound "
           f"{b1:.4f} ms by {by1}, {k1_ms / b1:.1f}x; {k1_ms / L * 1e3:.2f} us per knot; "
-          f"{FR.backward_blocks_per_sm(nx, nu, nc)} blocks per SM); K2 {k2_ms:.4f} ms (plain "
+          f"{per_sm} blocks per SM; {instantiation}: {ptx}); K2 {k2_ms:.4f} ms (plain "
           f"{k2_plain:.3f} ms, bound {b2:.4f} ms by {by2}, {k2_ms / b2:.1f}x)")
-    return [
+    rows = [
         dict(name=f"riccati_backward_{suffix}", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_backward.cu",
              replaces="aligator_tpu/gar/pallas_riccati.py:225",
-             instantiation=instantiation, path=path,
+             instantiation=instantiation, variant=variant, path=path,
              max_abs_err=max(max(e.values()) for e in errs_b.values()), ms=k1_ms,
-             plain_ms=k1_plain, bound_ms=b1, bound_by=by1, library_ms=None),
+             plain_ms=k1_plain, bound_ms=b1, bound_by=by1, library_ms=None,
+             us_per_knot=k1_ms / L * 1e3, blocks_per_sm=per_sm, ptxas=ptx),
         dict(name=f"riccati_forward_{suffix}", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_forward.cu",
              replaces="aligator_tpu/gar/pallas_riccati.py:549", path=path,
              max_abs_err=max(max(e.values()) for e in errs_f.values()), ms=k2_ms,
              plain_ms=k2_plain, bound_ms=b2, bound_by=by2, library_ms=None),
     ]
+    if not b256:
+        return rows
+    # K1 at B = 256: more problems than SMs, so residency counts
+    B256 = 256
+    lq256 = lqr_from_numpy(random_lq_arrays(np.random.default_rng(seed + 1), B256, N, nx, nu,
+                                            nc), device=dev, dtype=torch.float32)
+    kn256 = knots_of(lq256)
+    mu256 = torch.full((B256,), mus[0], device=dev)
+    check_k1(f"{label} B={B256} mu={mus[0]:g}", kn256, mu256)
+    k1_ms256 = cuda_ms(lambda: FR.backward_sweep_batched(kn256, mu256), 20)
+    b1_256, by1_256 = bound_ms(*backward_cost(B256, L, nx, nu, nc, 1))
+    n_sm = torch.cuda.get_device_properties(0).multi_processor_count
+    print(f"{label} widths B={B256} L={L}: K1 {k1_ms256:.4f} ms (bound {b1_256:.4f} ms by "
+          f"{by1_256}, {k1_ms256 / b1_256:.1f}x; {k1_ms256 / L * 1e3:.2f} us per knot; "
+          f"{per_sm} blocks per SM, {per_sm * n_sm} resident on {n_sm} SMs; {instantiation}: "
+          f"{ptx})")
+    rows[0].update(ms_b256=k1_ms256, bound_ms_b256=b1_256)
+    return rows
 
 
 def k_quad_check(dev):
-    """K1 (its instantiation for widths read at launch) and K2 at the
-    quadrotor's widths, B = 16, N = 60, nx = 12, nu = 4, nc = 6, at µ =
-    1e-2 (the solve's µ_init) and 1e-4."""
+    """K1 (its small-width kernel, class <32, 8>) and K2 at the quadrotor's
+    widths, B = 16, N = 60, nx = 12, nu = 4, nc = 6, at µ = 1e-2 (the
+    solve's µ_init) and 1e-4."""
+    check(str(FR.backward_plan(12, 4, 6)) == "small<32, 8>", "the quadrotor's K1 class")
     return k_widths_check(dev, "quadrotor", QUAD_BATCH, 60, 12, 4, 6, 13, (1e-2, 1e-4),
-                          "runtime", "quadrotor", "quadrotor_obstacles",
-                          "riccati_backward_kernel, widths read at launch")
+                          "quadrotor", "quadrotor_obstacles")
 
 
 def quadrotor_solves(dev, part: str) -> dict:
@@ -1792,8 +1983,8 @@ def examples_phase(pipes):
 # Slice 6: the legged and centroidal family. (a) The solo-12 jump
 # (examples/solo_jump.py: N = 45, dt = 0.02, a flight phase with every
 # contact off; nx = 37, ndx = 36, nu = 12, nc = 0) as 16 perturbed
-# scenarios in float32 through K1 (widths read at launch) and K2 (nx read
-# at launch), against the serial path in float32 and in float64; (b) the
+# scenarios in float32 through K1 (its small-width class <128, 16>) and K2
+# (nx read at launch), against the serial path in float32 and in float64; (b) the
 # humanoid squat (kinodynamics) and the centroidal CoM shift in float64 on
 # the card against the CPU, and the minimum-norm static balance of the
 # two wide systems; (c) the jump through the spec path, exported, sent
@@ -1813,12 +2004,12 @@ LEGGED_EXAMPLES = {  # name → (module, ProxDDPSettings of the example's main)
 
 
 def k_jump_check(dev):
-    """K1 (its instantiation for widths read at launch) and K2 at the
-    jump's widths, B = 16, N = 45, nx = 36, nu = 12, nc = 0, at µ = 1e-2
-    (the solve's µ_init) and 1e-4."""
+    """K1 (its small-width kernel, class <128, 16>) and K2 at the jump's
+    widths, B = 16, N = 45, nx = 36, nu = 12, nc = 0, at µ = 1e-2 (the
+    solve's µ_init) and 1e-4."""
+    check(str(FR.backward_plan(36, 12, 0)) == "small<128, 16>", "the jump's K1 class")
     return k_widths_check(dev, "jump", JUMP_BATCH, 45, 36, 12, 0, 17, (1e-2, 1e-4),
-                          "runtime", "solo", "solo_jump",
-                          "riccati_backward_kernel, widths read at launch")
+                          "solo", "solo_jump")
 
 
 def jump_solves(dev, part: str) -> dict:
@@ -2266,8 +2457,7 @@ def k_dist_check(dev):
     """K1 (the bench instantiation) and K2 at the shape one rank of part (b)
     gives them: B = 128, N = 100, nx = 56, nu = nc = 22, µ = 1e-2."""
     return k_widths_check(dev, "distributed", BATCH // 2, NSTEPS, NX, NU, NU, 19, (1e-2,),
-                          "bench", "distributed", "distributed",
-                          "riccati_backward_kernel<56, 22, 22>")
+                          "distributed", "distributed", b256=False)
 
 
 def check_batch_part(ranks, fused, shards) -> str:
@@ -2404,6 +2594,9 @@ def main() -> int:
     logs = cuda_build.build_all()
     print(f"kernel build: {time.perf_counter() - t0:.1f} s")
     print_ptxas(logs)
+    st, ld, n = small_spills()
+    print(f"K1 small-width instantiations and their chains: {n} functions, {st} B of spill "
+          f"stores, {ld} B of spill loads")
 
     t_run = time.perf_counter()
     kernels = kernels_phase(dev) + k1_walk_check(dev) + probe_phase(dev)

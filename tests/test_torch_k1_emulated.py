@@ -1,0 +1,140 @@
+"""The backward Riccati kernel K1's CUDA source (``csrc/riccati_backward.cu``)
+run on the CPU: compiled by g++ against an emulation of the CUDA built-ins
+(``tests/cuda_emulation.py``) and held against its plain version
+(``fused_riccati.backward_sweep_batched_ref``) at the widths of each
+instantiation, the compiled bench and walk widths and small-width classes
+from one warp to 256 threads, with the terminal knot's A, B, f NaN (the
+kernel must never read them); and its C entry ``riccati_backward_variant``
+held to ``fused_riccati.backward_plan`` at every width. The card runs the
+same checks in chip_smoke.py; here they catch an indexing or barrier fault
+without one. Skipped where there is no g++.
+
+Each output is gated at the larger of test_gar_pallas.py's float32
+tolerances (gains 2e-4, Vxx and vx 1e-3) and 1e-4·max|·| (the bench
+widths' gate), as chip_smoke.py gates the class boundaries.
+"""
+
+import ctypes
+
+import numpy as np
+import pytest
+import torch
+
+import cuda_emulation as E
+
+from aligator_tpu_torch.convert import lqr_from_numpy
+from aligator_tpu_torch.gar import fused_riccati as FR
+from aligator_tpu_torch.gar.riccati import knots_of
+from aligator_tpu_torch.utils import cuda_build
+
+torch.set_num_threads(1)
+_P, _I = ctypes.c_void_p, ctypes.c_int
+
+
+@pytest.fixture(scope="module")
+def lib(tmp_path_factory):
+    if E.compiler() is None:
+        pytest.skip("no g++ to compile the emulated kernel")
+    so = E.build(cuda_build.CSRC / "riccati_backward.cu", tmp_path_factory.mktemp("k1emu"))
+    lib = ctypes.CDLL(str(so))
+    lib.riccati_backward_f32.argtypes = [_P] * 20 + [_I] * 6 + [_P]
+    lib.riccati_backward_f32.restype = _I
+    lib.riccati_backward_variant.argtypes = [_I] * 3
+    lib.riccati_backward_variant.restype = _I
+    return lib
+
+
+def _random_lq(B, N, nx, nu, nc, seed):
+    """Well-posed random constrained LQs (chip_smoke.random_lq_arrays's
+    shape), the terminal A, B, f NaN."""
+    rng = np.random.default_rng(seed)
+    L = N + 1
+
+    def spd(n):
+        w = rng.standard_normal((B, L, n, n))
+        return w @ np.swapaxes(w, -1, -2) / n + np.eye(n)
+
+    Q, R = spd(nx), spd(nu)
+    S = 0.1 * rng.standard_normal((B, L, nx, nu))
+    A = np.eye(nx) + 0.05 * rng.standard_normal((B, L, nx, nx)) / np.sqrt(nx)
+    Bm = rng.standard_normal((B, L, nx, nu)) / np.sqrt(nx)
+    C = 0.5 * rng.standard_normal((B, L, nc, nx))
+    D = np.eye(nc, nu) + 0.1 * rng.standard_normal((B, L, nc, nu))
+    d = 0.1 * rng.standard_normal((B, L, nc))
+    C[:, 0] = D[:, 0] = d[:, 0] = C[:, N] = d[:, N] = 0.0
+    R[:, N], S[:, N], D[:, N] = np.eye(nu), 0.0, 0.0
+    r = rng.standard_normal((B, L, nu))
+    r[:, N] = 0.0
+    A[:, N] = Bm[:, N] = np.nan
+    f = 0.1 * rng.standard_normal((B, L, nx))
+    f[:, N] = np.nan
+    z = lambda *s: np.zeros((B,) + s)
+    arrays = dict(Q=Q, S=S, R=R, q=rng.standard_normal((B, L, nx)), r=r, A=A, B=Bm, f=f, C=C,
+                  D=D, d=d, Gx=z(L, nx, 0), Gu=z(L, nu, 0), Gth=z(L, 0, 0), gamma=z(L, 0),
+                  G0=-np.tile(np.eye(nx), (B, 1, 1)), g0=rng.standard_normal((B, nx)))
+    return knots_of(lqr_from_numpy(arrays, device="cpu", dtype=torch.float32))
+
+
+def _run(lib, knots, mu, refine_steps):
+    Bsz, L = knots.Q.shape[:2]
+    nx, nu, nc = knots.Q.shape[-1], knots.R.shape[-1], knots.C.shape[-2]
+    dims = dict(nx=nx, nu=nu, nc=nc)
+    outs = {n: torch.full((Bsz, L) + tuple(dims[s] for s in shape), float("nan"))
+            for n, shape in FR._GAIN_SHAPES.items()}
+    named = [getattr(knots, f).contiguous() for f in FR._KNOT_SHAPES]
+    order = ("K", "Z", "kff", "zff", "yff", "Acl", "Vxx", "vx")
+    err = lib.riccati_backward_f32(*(a.data_ptr() for a in named), mu.data_ptr(),
+                                   *(outs[n].data_ptr() for n in order), Bsz, L, nx, nu, nc,
+                                   refine_steps, None)
+    assert err == 0
+    return outs
+
+
+@pytest.mark.parametrize("B, N, nx, nu, nc, mu, refine, plan", [
+    (2, 5, 12, 4, 6, 1e-2, 1, "small<32, 8>"),      # the quadrotor
+    (2, 5, 12, 4, 6, 1e-4, 1, "small<32, 8>"),
+    (2, 5, 36, 12, 0, 1e-2, 1, "small<128, 16>"),   # the solo jump
+    (2, 5, 36, 12, 0, 1e-6, 1, "small<128, 16>"),
+    (2, 4, 7, 3, 2, 1e-6, 1, "small<32, 8>"),       # chip_smoke's small cases
+    (2, 4, 7, 3, 0, 1e-2, 0, "small<32, 8>"),
+    (2, 4, 7, 3, 2, 1e-2, 2, "small<32, 8>"),
+    (2, 3, 9, 6, 4, 1e-2, 1, "small<32, 8>"),       # the centroidal shift
+    (1, 3, 13, 9, 9, 1e-2, 1, "small<64, 16>"),
+    (1, 3, 5, 17, 17, 1e-2, 1, "small<64, 32>"),
+    (1, 3, 11, 1, 32, 1e-2, 1, "small<32, 32>"),
+    (1, 2, 30, 1, 0, 1e-2, 1, "small<128, 8>"),
+    (1, 2, 41, 1, 1, 1e-6, 1, "small<256, 8>"),
+    (1, 2, 84, 32, 0, 1e-2, 1, "small<256, 32>"),   # the widest nx
+    (1, 2, 56, 22, 22, 1e-2, 1, "bench"),
+    (1, 2, 56, 22, 0, 1e-8, 1, "walk"),
+])
+def test_emulated_kernel_matches_its_plain_version(lib, B, N, nx, nu, nc, mu, refine, plan):
+    assert str(FR.backward_plan(nx, nu, nc)) == plan
+    knots = _random_lq(B, N, nx, nu, nc, seed=nx + 100 * nu + 10000 * nc)
+    mus = torch.full((B,), mu)
+    faults = lib.emu_faults()
+    out = _run(lib, knots, mus, refine)
+    assert lib.emu_faults() == faults, "a cp.async was misaligned or never waited for"
+    gp, vp = FR.backward_sweep_batched_ref(knots, mus, refine)
+    for name, atol in (("kff", 2e-4), ("zff", 2e-4), ("yff", 2e-4), ("K", 2e-4), ("Z", 2e-4),
+                       ("Acl", 2e-4), ("Vxx", 1e-3), ("vx", 1e-3)):
+        ref = getattr(gp, name) if hasattr(gp, name) else getattr(vp, name)
+        if not ref.numel():
+            continue
+        assert bool(torch.isfinite(out[name]).all()), name
+        gate = max(atol, 1e-4 * max(float(ref.abs().max()), 1.0))
+        assert float((out[name] - ref).abs().max()) <= gate, name
+
+
+def test_c_entry_agrees_with_backward_plan(lib):
+    """riccati_backward_variant and backward_plan name the same
+    instantiation, or both refuse, at nx 0..85, nu and nc 0..33."""
+    for nx in range(86):
+        for nu in range(34):
+            for nc in range(34):
+                try:
+                    want = FR.backward_plan(nx, nu, nc).code
+                except ValueError:
+                    want = -1
+                got = lib.riccati_backward_variant(nx, nu, nc)
+                assert (got < 0) == (want < 0) and (want < 0 or got == want), (nx, nu, nc)
