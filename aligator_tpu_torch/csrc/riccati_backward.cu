@@ -1,5 +1,6 @@
 // Fused backward proximal Riccati sweep for a batch of constrained LQ
-// problems, float32, one thread block per problem, the time loop inside
+// problems, float32, one thread block per problem (or, at the compiled
+// widths and small batches, one thread-block cluster), the time loop inside
 // the block.
 //
 // Replaces: aligator_tpu/gar/pallas_riccati.py `_backward_kernel` (launched
@@ -7,9 +8,13 @@
 // `_stage_solve` / `_terminal_solve` over t = N..0 with nth = 0; the KKT
 // solve is the reference kernel's explicit-inverse form (`_kkt_solve_T`).
 //
-// Two kernels. `riccati_backward_kernel<NX, NU, NC>` has its widths compiled
+// Three kernels. `riccati_backward_kernel<NX, NU, NC>` has its widths compiled
 // in and serves the bench widths (nx = 56, nu = nc = 22) and the talos
-// walk's (nx = 56, nu = 22, nc = 0); `riccati_backward_small<NT, NCH>`
+// walk's (nx = 56, nu = 22, nc = 0), one block per problem;
+// `riccati_backward_cluster<NX, NU, NC>` serves the same widths with one
+// cluster of 2, 4 or 8 blocks per problem where the batch would leave most
+// SMs idle (its design is set out above it; `cluster_of` below and
+// fused_riccati.backward_plan choose the size); `riccati_backward_small<NT, NCH>`
 // reads its widths at launch and serves every other width (nu, nc <= 32,
 // nx <= 84) in one of twelve classes: NT ∈ {32, 64, 128, 256} threads, the
 // fewest that give each 4 × 4 tile of a knot's largest pass its own thread,
@@ -114,7 +119,10 @@
 // product fills `wgmma`'s 64-row tile. nc = 0 skips the Schur block. The
 // terminal knot's A, B, f are never read: its buffer is zero.
 
+#include <cooperative_groups.h>
 #include <cuda_runtime.h>
+
+namespace cg = cooperative_groups;
 
 namespace {
 
@@ -1312,11 +1320,496 @@ __global__ void __launch_bounds__(NT, 256 / NT) riccati_backward_small(
   }
 }
 
-// Host side: which instantiation serves which widths, the shared-memory
-// limit, the launch.
+// ---------------------------------------------------------------------------
+// The compiled widths' cluster variant: one problem per thread-block cluster
+// of cs blocks (cs in 2, 4, 8; blockIdx.x = problem · cs + rank), for
+// batches that leave most SMs idle with a block per problem.
+//
+// What bounds it. A barrier of the cluster costs ~900 cycles (its release
+// fence: the `.relaxed` arrive alone costs ~90) and each 16 bytes a thread
+// moves through distributed shared memory several hundred, where a product
+// pass of the knot takes 3,000-12,000 cycles on one SM: a design that
+// exchanged each pass's tiles (six barriers and ~70 KB a knot) ran slower
+// than one block at every cs. So the work is split by column strips of 4,
+// strip q belonging to rank q % cs, such that a pass reads what the same
+// rank wrote in the pass before: the Wᵀ strips and the rows of H (Q̂|q̂ and
+// Ŝ) of the rank's A strips; the solve, residual and refinement of its
+// strips of the solution's columns (the rhs strips its Ŝ tiles wrote);
+// [Vxx | vx] of its A strips' lower Q̂ tiles and [Acl | yff] of its
+// solution strips. Every rank forms the B strips of Wᵀ and the R̂|r̂ tiles
+// itself (a tenth of the hats' work), so that the chains need nothing from
+// the others. Two exchanges a knot remain, each a cluster barrier and then
+// loads from the other blocks' shared memory (`gather`, ~16 KB in all):
+// rhs's rows of -Ŝᵀ, which only [Vxx | vx] reads (the barrier arrives
+// after the hats and waits after the solve: its latency hides behind the
+// chains), and V before the next knot. The Gauss-Jordan chains (rolled)
+// and the small factorization products (two items a thread side by side)
+// run in every block on its own copy (the same inputs and instructions,
+// the same bits). Vxx takes its product the other way round, Q̂ - (rhsᵀ·sol)ᵀ (the
+// solution strip is the rank's own, rhs whole after the exchange);
+// rhsᵀ·sol is symmetric up to rounding, so the outputs agree with one
+// block per problem to rounding, and for a given cs bit for bit whatever
+// the batch (every cs >= 2 forms each entry alike: the same bits at every
+// size). At cs >= 2 every pass has at most 256 tiles a rank: one tile a
+// thread, set up before the time loop.
 
-using BenchDims = Dims<56, 22, 22>;  // lqr56, the bench's Talos-reduced widths
-using WalkDims = Dims<56, 22, 0>;    // the talos walk: ndx = 56, nu = 22, no constraints
+// This thread's tile in each pass (a tile code, -1 for none) and the
+// rank's Q̂ tiles, held by its threads tid < nq.
+struct ClusterTiles {
+  int p1, p2, sol, acl, nq;
+};
+
+template <class D>
+__device__ ClusterTiles cluster_tiles(const D& s, int rank, int cs) {
+  const int tid = threadIdx.x, nt = s.nt(), tq = s.tq(), cB = s.cB(), cF4 = s.cF4();
+  const int sB = cB / 4, sE = sB + cdiv(s.nu(), 4);  // the B strips of [A | f | 0 | B]
+  const int nrt = cdiv(s.m(), 4), nkt = cdiv(s.nk(), 4), ncs = s.ncs(), ncr = s.ncr();
+  ClusterTiles ct{-1, -1, -1, -1, 0};
+  // Wᵀ: every row tile of the rank's A strips and of every B strip (a0 the
+  // strip)
+  int u = tid;
+  for (int q = rank; q < nt && ct.p1 < 0; q += cs) {
+    if (u < nrt) ct.p1 = tile_code(4 * q, 4 * u);
+    else u -= nrt;
+  }
+  for (int q = sB; q < sE && ct.p1 < 0; ++q) {
+    if (u < nrt) ct.p1 = tile_code(4 * q, 4 * u);
+    else u -= nrt;
+  }
+  // the hats: the Q̂ tiles on and below the diagonal and the q̂ tile of its A
+  // strips first, then their Ŝ tiles, then the R̂|r̂ tiles of every B strip
+  u = tid;
+  for (int q = rank; q < nt; q += cs) {
+    const int n = q + 2;
+    if (ct.p2 < 0 && u < n) ct.p2 = tile_code(4 * q, u <= q ? 4 * u : 4 * tq, 0);
+    else if (ct.p2 < 0) u -= n;
+    ct.nq += n;
+  }
+  for (int q = rank; q < nt && ct.p2 < 0; q += cs) {
+    if (u < ncs) ct.p2 = tile_code(4 * q, cB + 4 * u, 1);
+    else u -= ncs;
+  }
+  for (int q = sB; q < sE && ct.p2 < 0; ++q) {
+    if (u < ncr) ct.p2 = tile_code(4 * q, cF4 + 4 * u, 2);
+    else u -= ncr;
+  }
+  // the solve passes and [Acl | yff]: the rank's strips of the solution's
+  // columns [gain | ff] (a0 the row, c0 the strip); Acl past the Q̂ threads
+  u = tid;
+  for (int q = rank; q < nrt && ct.sol < 0; q += cs) {
+    if (u < nkt) ct.sol = tile_code(4 * u, 4 * q);
+    else u -= nkt;
+  }
+  u = tid - ct.nq;
+  for (int q = rank; q < nrt && u >= 0 && ct.acl < 0; q += cs) {
+    if (u < nt) ct.acl = tile_code(4 * u, 4 * q);
+    else u -= nt;
+  }
+  return ct;
+}
+
+// After an exchange's cluster barrier: copies into this block's shared
+// memory the granules (4 floats, 16-byte aligned) that other blocks wrote.
+// `granule(i, owner)` gives the address of granule i < n, the same in every
+// block, and sets the rank that wrote it. Four loads from the other blocks'
+// shared memory are in flight before their stores.
+template <class F>
+__device__ __forceinline__ void gather(int n, int rank, F granule) {
+#pragma unroll 1
+  for (int i0 = threadIdx.x; i0 < n; i0 += 4 * kThreads) {
+    float* dst[4];
+    float4 v[4];
+#pragma unroll
+    for (int u = 0; u < 4; ++u) {
+      const int i = i0 + u * kThreads;
+      int owner = rank;
+      dst[u] = i < n ? granule(i, owner) : nullptr;
+      if (owner == rank) dst[u] = nullptr;
+      if (dst[u])
+        v[u] = *reinterpret_cast<const float4*>(cg::cluster_group::map_shared_rank(dst[u], owner));
+    }
+#pragma unroll
+    for (int u = 0; u < 4; ++u)
+      if (dst[u]) *reinterpret_cast<float4*>(dst[u]) = v[u];
+  }
+}
+
+// item(i1, i2, two) for every i < n over the block's threads, two items a
+// thread: i1 and i2 = i1 + 256 (i2 = i1 and two = false past n).
+template <class F>
+__device__ __forceinline__ void pairs(int n, F item) {
+  for (int i = threadIdx.x; i < n; i += 2 * kThreads) {
+    const int i2 = i + kThreads;
+    item(i, i2 < n ? i2 : i, i2 < n);
+  }
+}
+
+// a1 += Σ_k x1[k]·y1[k·sy] and a2 += Σ_k x2[k]·y2[k·sy] for k < n, each in
+// the order of k (fmaf), the two chains side by side.
+__device__ __forceinline__ void dot2(const float* x1, const float* y1, const float* x2,
+                                     const float* y2, int sy, int n, float& a1, float& a2) {
+#pragma unroll 2
+  for (int k = 0; k < n; ++k) {
+    a1 = fmaf(x1[k], y1[k * sy], a1);
+    a2 = fmaf(x2[k], y2[k * sy], a2);
+  }
+}
+
+// One block to an SM (at least kClusterSmemMin of shared memory each), so
+// up to 255 registers a thread.
+template <int NX, int NU, int NC>
+__global__ void __launch_bounds__(kThreads, 1) riccati_backward_cluster(
+    Knots g, const float* __restrict__ mu_all, float* __restrict__ K_o,
+    float* __restrict__ Z_o, float* __restrict__ kff_o, float* __restrict__ zff_o,
+    float* __restrict__ yff_o, float* __restrict__ Acl_o, float* __restrict__ Vxx_o,
+    float* __restrict__ vx_o, int L, Dims<NX, NU, NC> s, int refine_steps, int cs) {
+  static_assert(NX > 0 && NX % 4 == 0 && NU > 0 && NC >= 0,
+                "the cluster variant takes compiled widths with nx a multiple of 4");
+  using D = Dims<NX, NU, NC>;
+  using Sm = Smem<D>;
+  constexpr int kChainRolled = r4(imax(imax(NU, NC), 1));  // its rows: a multiple of 4
+  extern __shared__ float4 smem4[];
+  float* smem = reinterpret_cast<float*>(smem4);
+  const Sm l = Sm::make(smem, s);
+  const int nx = s.nx(), nu = s.nu(), nc = s.nc(), m = s.m(), nk = s.nk();
+  const int ldV = s.ldV(), ldM = s.ldM(), ldD = s.ldD(), ldT = s.ldT(), ldS = s.ldS();
+  const int cB = s.cB(), nt = s.nt(), tq = s.tq(), nrt = cdiv(m, 4);
+  const int tid = threadIdx.x, rank = (int)cg::cluster_group::block_rank();
+  const int b = (int)blockIdx.x / cs;
+  const float mu = mu_all[b];
+  const int kbuf = (int)(l.M[1] - l.M[0]);  // from one knot buffer to the other
+  const ClusterTiles ct = cluster_tiles(s, rank, cs);
+
+  // V = v = 0 and every pad zero; the terminal knot's [A | f | B] stays zero
+  const int total = (int)Sm::floats(s);
+  for (int i = tid; i < total; i += kThreads) smem[i] = 0.f;
+  __syncthreads();
+  {
+    const int o = ((L - 1) & 1) * kbuf;
+    issue_knot(g, (size_t)b * L + L - 1, true, l.M[0] + o, l.Cd[0] + o, l.Dm[0] + o, s);
+    cp_async_commit();
+  }
+
+  float* Wt = l.work;                      // Wᵀ, (nx+1) × ldM
+  float* sol = l.work;                     // nk × ldV
+  float* res = l.work + nk * ldV + kSlack;  // nk × ldV
+  const int fs = s.nf() * ldS;             // factorization scratch slots
+  float* Rinv = l.work;
+  float* RiDt = l.work + fs;
+  float* Ssym = l.work + 2 * fs;
+  float* Sinv = l.work + 3 * fs;
+  float* U = l.work + 4 * fs;
+  cg::cluster_group::barrier_arrive();  // the first knot's wait
+
+  // the exchanges' granules: V (row r, strip q), from the rank of the lower
+  // Q̂ tile that holds it (its own or its mirror's); rhs's rows of -Ŝᵀ
+  // (strip q, from its A strip's rank)
+  auto v_granule = [&](int i, int& owner) -> float* {
+    const int r = i / nrt, q = i - r * nrt;
+    owner = (q == tq ? r / 4 : imax(r / 4, q)) % cs;
+    return l.V + r * ldV + 4 * q;
+  };
+  auto rhs_granule = [&](int i, int& owner) -> float* {
+    const int k = i / nt, q = i - k * nt;
+    owner = q % cs;
+    return l.rhs + k * ldV + 4 * q;
+  };
+
+  for (int t = L - 1; t >= 0; --t) {
+    const size_t kt = (size_t)b * L + t;
+    const int o = (t & 1) * kbuf;
+    const float* Mc = l.M[0] + o;
+    const float* Cd = l.Cd[0] + o;
+    const float* Dm = l.Dm[0] + o;
+
+    // A hat tile's [Q S; · R] and [q; r] entries, from device memory.
+    auto load_h = [&](int code, float (&h)[4][4]) {
+      const int a0 = tile_a0(code), c0 = tile_c0(code), kind = tile_kind(code);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int a = a0 + ii, c = c0 + jj;
+          const bool arow = a < nx, brow = a >= cB && a < cB + nu;
+          const bool bcol = c >= cB && c < cB + nu;
+          const float* src = nullptr;
+          if (kind == 0 && arow && c < nx) src = g.Q + (kt * nx + a) * nx + c;
+          if (kind == 0 && arow && c == nx) src = g.q + kt * nx + a;
+          if (kind == 1 && arow && bcol) src = g.S + (kt * nx + a) * nu + c - cB;
+          if (kind == 2 && brow && bcol) src = g.R + (kt * nu + a - cB) * nu + c - cB;
+          if (kind == 2 && brow && c == nx) src = g.r + kt * nu + a - cB;
+          h[ii][jj] = src ? __ldg(src) : 0.f;
+        }
+    };
+
+    // this knot's buffer has arrived; after the block's barrier nobody reads
+    // the other one (the previous knot's), so the next knot goes there.
+    // Before the wait of the cluster barrier that the last knot arrived at
+    // (its V written): the copies, this knot's KKT rows from [C | d] and D
+    // (this block's memory only) and its hat terms; then the others' V.
+    cp_async_wait_all();
+    __syncthreads();
+    if (t > 0) {
+      const int on = ((t - 1) & 1) * kbuf;
+      issue_knot(g, kt - 1, false, l.M[0] + on, l.Cd[0] + on, l.Dm[0] + on, s);
+      cp_async_commit();
+    }
+    for (int i = tid; i < nc * m; i += kThreads) {
+      const int j = i / m, c = i % m;
+      l.rhs[(nu + j) * ldV + c] = -Cd[j * ldV + c];
+    }
+    for (int i = tid; i < nc * nu; i += kThreads) {
+      const int j = i / nu, k = i % nu;
+      const float dv = Dm[j * ldD + k];
+      l.K[(nu + j) * ldT + k] = dv;
+      l.K[k * ldT + nu + j] = dv;
+    }
+    for (int i = tid; i < nc * nc; i += kThreads) {
+      const int j = i / nc, k = i % nc;
+      l.K[(nu + j) * ldT + nu + k] = j == k ? -mu : 0.f;
+    }
+    float h0[4][4];
+    if (ct.p2 >= 0) load_h(ct.p2, h0);  // consumed after Wᵀ: its latency hides behind it
+    cg::cluster_group::barrier_wait();
+    if (t < L - 1) gather(nx * nrt, rank, v_granule);
+    __syncthreads();
+
+    // Wᵀ = [V | v]ᵀ [A | f | B], the rank's strips
+    if (ct.p1 >= 0) {
+      const int a0 = tile_a0(ct.p1), c0 = tile_c0(ct.p1);
+      float acc[4][4] = {};
+      mm_kk<4, 4, false>(acc, l.V + c0, ldV, Mc + a0, ldM, nx);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+        if (c0 + ii < m)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) Wt[(c0 + ii) * ldM + a0 + jj] = acc[ii][jj];
+    }
+    __syncthreads();
+
+    // H = W·[A | f | B] + [Q S; · R] on the rank's rows and every B row,
+    // with q̂ = q + Aᵀv + AᵀVf and r̂ = r + Bᵀv + BᵀVf; Q̂|q̂ stays in
+    // registers, -Ŝᵀ and -r̂ go to rhs, R̂ to the KKT matrix; then the
+    // arrival of rhs's exchange
+    float qh[4][4];
+    if (ct.p2 >= 0) {
+      const int a0 = tile_a0(ct.p2), c0 = tile_c0(ct.p2), kind = tile_kind(ct.p2);
+      float acc[4][4];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) acc[ii][jj] = h0[ii][jj];
+      mm_kk<4, 4, false>(acc, Wt + a0, ldM, Mc + c0, ldM, nx);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii) {
+        const int a = a0 + ii;
+        const float mtv = Wt[nx * ldM + a];  // (Mᵀv)(a)
+        const bool arow = a < nx, brow = a >= cB && a < cB + nu;
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int c = c0 + jj;
+          const bool bcol = c >= cB && c < cB + nu;
+          const float v = acc[ii][jj] + (c == nx ? mtv : 0.f);  // q̂, r̂ take Mᵀv
+          qh[ii][jj] = v;
+          if (kind == 1 && arow && bcol) l.rhs[(c - cB) * ldV + a] = -v;  // -Ŝᵀ
+          if (kind == 2 && brow && c == nx) l.rhs[(a - cB) * ldV + nx] = -v;  // -r̂
+          if (kind == 2 && brow && bcol) l.K[(a - cB) * ldT + c - cB] = v;  // R̂
+        }
+      }
+    }
+    __syncthreads();
+    cg::cluster_group::barrier_arrive();
+
+    // T = KKT⁻¹, stored transposed: l.T[c·ldT + r] = T(r, c). Warp 0
+    // symmetrizes R̂ in the KKT matrix and inverts it, by the rolled chain
+    // (the same arithmetic as warp_spd_inverse in a few dozen instructions:
+    // the loop body is larger than the instruction cache, and the unrolled
+    // chain took 8,300-10,400 cycles here against 5,650-5,900 in the kernel
+    // without a cluster); the small products two items a thread, R̂⁻¹Dᵀ with
+    // its rows across the threads (no bank conflicts)
+    if (tid < 32) warp_spd_inverse_rolled<kChainRolled>(l.K, ldT, Rinv, ldS, 1, nu);
+    __syncthreads();
+    if (nc > 0) {
+      pairs(nu * nc, [&](int i1, int i2, bool two) {
+        const int r1 = i1 % nu, c1 = i1 / nu, r2 = i2 % nu, c2 = i2 / nu;
+        float a1 = 0.f, a2 = 0.f;
+        dot2(Rinv + r1 * ldS, Dm + c1 * ldD, Rinv + r2 * ldS, Dm + c2 * ldD, 1, nu, a1, a2);
+        RiDt[r1 * ldS + c1] = a1;  // R̂⁻¹Dᵀ
+        if (two) RiDt[r2 * ldS + c2] = a2;
+      });
+      __syncthreads();
+      pairs(nc * nc, [&](int i1, int i2, bool two) {
+        const int r1 = i1 / nc, c1 = i1 % nc, r2 = i2 / nc, c2 = i2 % nc;
+        float s1 = 0.f, s2 = 0.f, t1 = 0.f, t2 = 0.f;
+        dot2(Dm + r1 * ldD, RiDt + c1, Dm + r2 * ldD, RiDt + c2, ldS, nu, s1, s2);
+        dot2(Dm + c1 * ldD, RiDt + r1, Dm + c2 * ldD, RiDt + r2, ldS, nu, t1, t2);
+        const float d1 = r1 == c1 ? mu : 0.f, d2 = r2 == c2 ? mu : 0.f;
+        Ssym[r1 * ldS + c1] = 0.5f * ((d1 + s1) + (d1 + t1));  // sym(µI + D R̂⁻¹Dᵀ)
+        if (two) Ssym[r2 * ldS + c2] = 0.5f * ((d2 + s2) + (d2 + t2));
+      });
+      __syncthreads();
+      if (tid < 32) warp_spd_inverse_rolled<kChainRolled>(Ssym, ldS, Sinv, ldS, 1, nc);
+      __syncthreads();
+      pairs(nu * nc, [&](int i1, int i2, bool two) {
+        const int r1 = i1 / nc, c1 = i1 % nc, r2 = i2 / nc, c2 = i2 % nc;
+        float a1 = 0.f, a2 = 0.f;
+        dot2(RiDt + r1 * ldS, Sinv + c1, RiDt + r2 * ldS, Sinv + c2, ldS, nc, a1, a2);
+        U[r1 * ldS + c1] = a1;
+        l.T[(nu + c1) * ldT + r1] = a1;  // T(r, nu+c) = U
+        l.T[r1 * ldT + nu + c1] = a1;    // T(nu+c, r) = Uᵀ
+        if (two) {
+          U[r2 * ldS + c2] = a2;
+          l.T[(nu + c2) * ldT + r2] = a2;
+          l.T[r2 * ldT + nu + c2] = a2;
+        }
+      });
+      for (int i = tid; i < nc * nc; i += kThreads) {
+        const int r = i / nc, c = i % nc;
+        l.T[(nu + c) * ldT + nu + r] = -Sinv[r * ldS + c];
+      }
+      __syncthreads();
+    }
+    pairs(nu * nu, [&](int i1, int i2, bool two) {
+      const int r1 = i1 / nu, c1 = i1 % nu, r2 = i2 / nu, c2 = i2 % nu;
+      float a1 = 0.f, a2 = 0.f;
+      dot2(U + r1 * ldS, RiDt + c1 * ldS, U + r2 * ldS, RiDt + c2 * ldS, 1, nc, a1, a2);
+      l.T[c1 * ldT + r1] = Rinv[r1 * ldS + c1] - a1;  // T11 = R̂⁻¹ - U·(R̂⁻¹Dᵀ)ᵀ
+      if (two) l.T[c2 * ldT + r2] = Rinv[r2 * ldS + c2] - a2;
+    });
+    __syncthreads();
+
+    // sol = T·rhs, then refine_steps rounds of sol += T·(rhs - KKT·sol), on
+    // the rank's strips of the solution; the last round writes the gains
+    // The gains go to device memory as the last round forms them, or at the
+    // walk's widths (NC = 0) after the arrival below, whose release would
+    // wait for them: there that was 4-5 % faster a sweep, at the bench's
+    // widths 3 % slower (the tile held through [Vxx | vx] took 27 more
+    // registers; chip_smoke.py's k1_cluster_check on an H100, PERF.md §6).
+    const int i0 = tile_a0(ct.sol), j0 = tile_c0(ct.sol);
+    float* K_t = K_o + kt * nu * nx;
+    float* Z_t = Z_o + kt * nc * nx;
+    auto gain_at = [&](int r, int c) {
+      return r < nu ? (c < nx ? K_t + r * nx + c : kff_o + kt * nu + r)
+                    : (c < nx ? Z_t + (r - nu) * nx + c : zff_o + kt * nc + r - nu);
+    };
+    float gain[4][4];
+    for (int it = 0; it <= refine_steps; ++it) {
+      if (it > 0) {
+        if (ct.sol >= 0) {
+          float acc[4][4] = {};
+          mm_kk<4, 4, false>(acc, l.K + i0, ldT, sol + j0, ldV, nk);
+          // whole rows of 4: the pad columns past m stay zero (rhs's are)
+#pragma unroll
+          for (int ii = 0; ii < 4; ++ii) {
+            const int r = i0 + ii;
+            if (r >= nk) break;
+            const float4 bv = *reinterpret_cast<const float4*>(l.rhs + r * ldV + j0);
+            *reinterpret_cast<float4*>(res + r * ldV + j0) =
+                make_float4(bv.x - acc[ii][0], bv.y - acc[ii][1], bv.z - acc[ii][2],
+                            bv.w - acc[ii][3]);
+          }
+        }
+        __syncthreads();
+      }
+      const float* x = it > 0 ? res : l.rhs;
+      const bool last = it == refine_steps;
+      if (ct.sol >= 0) {
+        float acc[4][4] = {};
+        mm_kk<4, 4, false>(acc, l.T + i0, ldT, x + j0, ldV, nk);
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj) {
+            const int r = i0 + ii, c = j0 + jj;
+            if (r >= nk || c >= m) continue;
+            const float v = it > 0 ? sol[r * ldV + c] + acc[ii][jj] : acc[ii][jj];
+            sol[r * ldV + c] = v;
+            if (!last) continue;
+            if constexpr (NC == 0) gain[ii][jj] = v;
+            else *gain_at(r, c) = v;
+          }
+      }
+      __syncthreads();
+    }
+
+    // the others' rows of -Ŝᵀ; then [Vxx | vx] = [Q̂ | q̂] - (rhsᵀ·sol)ᵀ on
+    // the threads holding Q̂, which write each entry on and below the
+    // diagonal to both halves of V, and the arrival at the cluster barrier
+    // that the next knot waits at; [Acl | yff] = [A | f] + B·[K | kff] on
+    // the rank's solution strips
+    cg::cluster_group::barrier_wait();
+    gather(nu * nt, rank, rhs_granule);
+    __syncthreads();
+    // (V's copies to device memory after the arrival: its release would
+    // wait for them)
+    const int a0 = tile_a0(ct.p2), c0 = tile_c0(ct.p2);
+    if (tid < ct.nq) {
+      mm_kk<4, 4, true>(qh, sol + a0, ldV, l.rhs + c0, ldV, nk);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int r = a0 + ii, c = c0 + jj;
+          if (r >= nx) continue;
+          if (c == nx) {
+            l.V[r * ldV + nx] = qh[ii][jj];
+          } else if (c < nx && (c0 < a0 || (c0 == a0 && c <= r))) {
+            l.V[r * ldV + c] = qh[ii][jj];
+            l.V[c * ldV + r] = qh[ii][jj];
+          }
+        }
+    }
+    cg::cluster_group::barrier_arrive();
+    if constexpr (NC == 0) {
+      if (ct.sol >= 0)
+#pragma unroll
+        for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+          for (int jj = 0; jj < 4; ++jj)
+            if (i0 + ii < nk && j0 + jj < m) *gain_at(i0 + ii, j0 + jj) = gain[ii][jj];
+    }
+    if (tid < ct.nq) {
+      float* V_t = Vxx_o + kt * nx * nx;
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int r = a0 + ii, c = c0 + jj;
+          if (r >= nx) continue;
+          if (c == nx) {
+            vx_o[kt * nx + r] = qh[ii][jj];
+          } else if (c < nx && (c0 < a0 || (c0 == a0 && c <= r))) {
+            V_t[r * nx + c] = qh[ii][jj];
+            V_t[c * nx + r] = qh[ii][jj];
+          }
+        }
+    }
+    if (ct.acl >= 0) {
+      const int ia = tile_a0(ct.acl), ja = tile_c0(ct.acl);
+      float* Acl_t = Acl_o + kt * nx * nx;
+      float acc[4][4];
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj)
+          acc[ii][jj] = (ia + ii < nx && ja + jj < m) ? Mc[(ia + ii) * ldM + ja + jj] : 0.f;
+      mm_ik<4, 4>(acc, Mc + ia * ldM + cB, ldM, nx - ia, sol + ja, ldV, nu);
+#pragma unroll
+      for (int ii = 0; ii < 4; ++ii)
+#pragma unroll
+        for (int jj = 0; jj < 4; ++jj) {
+          const int r = ia + ii, c = ja + jj;
+          if (r < nx && c < nx) Acl_t[r * nx + c] = acc[ii][jj];
+          else if (r < nx && c == nx) yff_o[kt * nx + r] = acc[ii][jj];
+        }
+    }
+  }
+  cg::cluster_group::barrier_wait();  // no block leaves while another may still read it
+}
+
+// Host side: which instantiation serves which widths, the cluster size, the
+// shared-memory limit, the launch.
+
 constexpr int kMaxDevices = 64;
 
 // The small-width classes: threads per block × chain length. Each takes the
@@ -1325,6 +1818,21 @@ constexpr int kMaxDevices = 64;
 constexpr int kClassThreads[] = {32, 64, 128, 256};
 constexpr int kClassChains[] = {8, 16, 32};
 constexpr int kNumThreads = 4, kNumChains = 3, kNumSmall = kNumThreads * kNumChains;
+
+// The cluster sizes the compiled widths launch with (1: the kernel without
+// a cluster), and which of them the plan takes for the bench's and the
+// walk's widths: those that chip_smoke.py's k1_cluster_check measured
+// faster than one block per problem at every batch the card held them at,
+// on an H100 80GB HBM3 at 700 W (fused_riccati.BACKWARD_CLUSTER_SIZES holds
+// the same, with the run that set it).
+constexpr int kClusters[] = {1, 2, 4, 8};
+constexpr bool kClusterTaken[2][4] = {{true, true, true, true}, {true, false, true, true}};
+// A block of the cluster variant takes at least this much dynamic shared
+// memory, more than half of an SM's 228 KB: no two blocks share an SM.
+constexpr size_t kClusterSmemMin = 116 * 1024;
+// kernel_at indices: the two compiled widths, the small-width classes, then
+// the compiled widths' cluster variant
+constexpr int kClusterIndex = 2 + kNumSmall, kNumKernels = kClusterIndex + 2;
 
 struct Launch {
   Knots g;
@@ -1343,8 +1851,36 @@ void launch_small(const Launch& a) {
       a.g, a.mu, a.K, a.Z, a.kff, a.zff, a.yff, a.Acl, a.Vxx, a.vx, a.L, a.s, a.refine_steps);
 }
 
+// The compiled widths' kernel: one block per problem (cs = 1), or one
+// cluster of cs blocks per problem, through cudaLaunchKernelEx.
+template <int NX, int NU, int NC>
+cudaError_t launch_compiled(const Launch& a, int cs) {
+  const Dims<NX, NU, NC> s{a.s.rx, a.s.ru, a.s.rc};
+  if (cs == 1) {
+    riccati_backward_kernel<NX, NU, NC><<<a.batch, kThreads, a.smem, a.stream>>>(
+        a.g, a.mu, a.K, a.Z, a.kff, a.zff, a.yff, a.Acl, a.Vxx, a.vx, a.L, s, a.refine_steps);
+    return cudaSuccess;
+  }
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.batch * cs);
+  cfg.blockDim = dim3(kThreads);
+  cfg.dynamicSmemBytes = a.smem;
+  cfg.stream = a.stream;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return cudaLaunchKernelEx(&cfg, riccati_backward_cluster<NX, NU, NC>, a.g, a.mu, a.K,
+                            a.Z, a.kff, a.zff, a.yff, a.Acl, a.Vxx, a.vx, a.L, s,
+                            a.refine_steps, cs);
+}
+
 // One entry per instantiation: 0 the bench's, 1 the walk's, 2 + c the
-// small-width class c = (index of its threads) · 3 + (index of its chain).
+// small-width class c = (index of its threads) · 3 + (index of its chain),
+// kClusterIndex + 0 and + 1 the bench's and the walk's cluster variant.
 struct Kernel {
   const void* fn;
   int threads;
@@ -1357,13 +1893,15 @@ Kernel small_kernel() {
 }
 
 const Kernel& kernel_at(int index) {
-  static const Kernel table[2 + kNumSmall] = {
+  static const Kernel table[kNumKernels] = {
       {(const void*)&riccati_backward_kernel<56, 22, 22>, kThreads, nullptr},
       {(const void*)&riccati_backward_kernel<56, 22, 0>, kThreads, nullptr},
       small_kernel<32, 8>(),   small_kernel<32, 16>(),  small_kernel<32, 32>(),
       small_kernel<64, 8>(),   small_kernel<64, 16>(),  small_kernel<64, 32>(),
       small_kernel<128, 8>(),  small_kernel<128, 16>(), small_kernel<128, 32>(),
       small_kernel<256, 8>(),  small_kernel<256, 16>(), small_kernel<256, 32>(),
+      {(const void*)&riccati_backward_cluster<56, 22, 22>, kThreads, nullptr},
+      {(const void*)&riccati_backward_cluster<56, 22, 0>, kThreads, nullptr},
   };
   return table[index];
 }
@@ -1407,10 +1945,82 @@ size_t smem_bytes(int nx, int nu, int nc) {
   return Smem<RtDims>::floats(RtDims{nx, nu, nc}) * sizeof(float);
 }
 
+// A block of the cluster variant: at least kClusterSmemMin.
+size_t cluster_smem_bytes(int nx, int nu, int nc) {
+  const size_t need = smem_bytes(nx, nu, nc);
+  return need > kClusterSmemMin ? need : kClusterSmemMin;
+}
+
+cudaError_t ensure_smem_limit(int index, size_t smem);
+
+// Clusters of cs blocks of kernel_at(index), with `smem` bytes a block,
+// that the current device holds at once; a cudaError as a negative number.
+int max_clusters(int index, int cs, size_t smem) {
+  cudaError_t err = ensure_smem_limit(index, smem);
+  if (err != cudaSuccess) return -(int)err;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(cs);
+  cfg.blockDim = dim3(kernel_at(index).threads);
+  cfg.dynamicSmemBytes = smem;
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = cs;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  int n = 0;
+  err = cudaOccupancyMaxActiveClusters(&n, kernel_at(index).fn, &cfg);
+  return err == cudaSuccess ? n : -(int)err;
+}
+
+// Clusters of cs blocks of a compiled variant's cluster kernel that the
+// current device holds at once (0 if the runtime cannot say), asked once
+// per device.
+int device_clusters(int variant, int cs) {
+  static int held[2][4][kMaxDevices] = {};
+  int dev = 0, ci = 0;
+  if (cudaGetDevice(&dev) != cudaSuccess || dev >= kMaxDevices) return 0;
+  while (kClusters[ci] != cs) ++ci;
+  int& n = held[variant - 1][ci][dev];
+  if (n == 0) {
+    const size_t smem = cluster_smem_bytes(56, 22, variant == 1 ? 22 : 0);
+    n = max_clusters(kClusterIndex + variant - 1, cs, smem);
+    if (n < 0) n = 0;
+  }
+  return n;
+}
+
+// The cluster size for `batch` problems of a variant: the largest of the
+// sizes it takes (kClusterTaken) whose `batch` clusters the card holds at
+// once, one block to an SM; 1 for the small-width classes. On a card of
+// `sms` SMs it counts sms / cs clusters of cs; with sms = 0 it asks the
+// current device (cudaOccupancyMaxActiveClusters: clusters live within one
+// GPC, so an H100's 132 SMs hold 15 clusters of 8 and 30 of 4).
+int cluster_of(int variant, int batch, int sms) {
+  if (variant != 1 && variant != 2) return 1;
+  int cs = 1;
+  for (int i = 1; i < 4; ++i) {
+    const int c = kClusters[i];
+    if (kClusterTaken[variant - 1][i] && batch <= (sms > 0 ? sms / c : device_clusters(variant, c)))
+      cs = c;
+  }
+  return cs;
+}
+
+// Whether the kernel of this variant launches with clusters of cs blocks.
+bool takes_cluster(int variant, int cs) {
+  if (variant != 1 && variant != 2) return cs == 1;
+  for (int c : kClusters)
+    if (c == cs) return true;
+  return false;
+}
+
+
 // Raises an instantiation's dynamic shared-memory limit on the current
 // device, once per device and only when `smem` is more than was set before.
 cudaError_t ensure_smem_limit(int index, size_t smem) {
-  static size_t smem_limit[2 + kNumSmall][kMaxDevices] = {};
+  static size_t smem_limit[kNumKernels][kMaxDevices] = {};
   int dev = 0;
   cudaError_t err = cudaGetDevice(&dev);
   if (err != cudaSuccess) return err;
@@ -1429,7 +2039,8 @@ cudaError_t ensure_smem_limit(int index, size_t smem) {
 
 extern "C" {
 
-// Bytes of dynamic shared memory one block needs at these dims.
+// Bytes of dynamic shared memory one block needs at these dims (a block per
+// problem; a block of the cluster variant takes more, kClusterSmemMin).
 long long riccati_backward_smem_bytes(int nx, int nu, int nc) {
   return (long long)smem_bytes(nx, nu, nc);
 }
@@ -1440,6 +2051,17 @@ long long riccati_backward_smem_bytes(int nx, int nu, int nc) {
 // its widths at launch (fused_riccati.backward_plan says the same); -1 if
 // nu is not in 1..32 or nc not in 0..32, -2 if nx > 84.
 int riccati_backward_variant(int nx, int nu, int nc) { return variant_of(nx, nu, nc); }
+
+// The cluster size of a launch of `batch` problems at these dims: 2, 4 or
+// 8 at the compiled widths where the card holds that many clusters at
+// once, else 1; counted on a card of `sms` SMs, or (sms = 0) on the current
+// device, as a launch counts it (fused_riccati.backward_plan(...).cluster
+// says the same); -1 for dims outside the kernel.
+int riccati_backward_cluster(int nx, int nu, int nc, int batch, int sms) {
+  const int variant = variant_of(nx, nu, nc);
+  if (variant < 0) return -1;
+  return cluster_of(variant, batch, sms > 0 ? sms : 0);
+}
 
 // Blocks of the kernel that one SM of the current device holds at once at
 // these dims (the instantiation's threads and the shared memory above per
@@ -1457,37 +2079,48 @@ int riccati_backward_blocks_per_sm(int nx, int nu, int nc) {
   return err == cudaSuccess ? blocks : -(int)err;
 }
 
-// Launches one block per problem on `stream`; returns cudaGetLastError().
-// The caller checks riccati_backward_variant() >= 0 first.
+// Clusters of cs blocks that the current device holds at once at these
+// dims (cudaOccupancyMaxActiveClusters; cs = 1: blocks of the kernel
+// without a cluster); a cudaError as a negative number.
+int riccati_backward_max_clusters(int nx, int nu, int nc, int cs) {
+  const int variant = variant_of(nx, nu, nc);
+  if (variant < 0 || !takes_cluster(variant, cs)) return -(int)cudaErrorInvalidValue;
+  if (cs == 1) return max_clusters(index_of(variant), 1, smem_bytes(nx, nu, nc));
+  return max_clusters(kClusterIndex + variant - 1, cs, cluster_smem_bytes(nx, nu, nc));
+}
+
+// Launches the sweep on `stream`: one block per problem, or for the
+// compiled widths one cluster of `cluster` blocks per problem (0: the size
+// riccati_backward_cluster gives on this device; 1 the kernel without a
+// cluster; 2, 4, 8). Returns cudaErrorInvalidValue for dims outside the
+// kernel or a cluster size it does not take, else the launch's error and
+// then cudaGetLastError(): a cluster launch the card refuses raises, with
+// no retry at another size.
 int riccati_backward_f32(const void* Q, const void* S, const void* R, const void* q,
                          const void* r, const void* A, const void* Bm, const void* f,
                          const void* C, const void* D, const void* d, const void* mu, void* K,
                          void* Z, void* kff, void* zff, void* yff, void* Acl, void* Vxx,
                          void* vx, int batch, int L, int nx, int nu, int nc, int refine_steps,
-                         void* stream) {
-  const size_t smem = smem_bytes(nx, nu, nc);
+                         int cluster, void* stream) {
   const int variant = variant_of(nx, nu, nc);
   if (variant < 0) return (int)cudaErrorInvalidValue;
-  const cudaError_t err = ensure_smem_limit(index_of(variant), smem);
+  const int cs = cluster == 0 ? cluster_of(variant, batch, 0) : cluster;
+  if (!takes_cluster(variant, cs)) return (int)cudaErrorInvalidValue;
+  const int index = cs > 1 ? kClusterIndex + variant - 1 : index_of(variant);
+  const size_t smem = cs > 1 ? cluster_smem_bytes(nx, nu, nc) : smem_bytes(nx, nu, nc);
+  cudaError_t err = ensure_smem_limit(index, smem);
   if (err != cudaSuccess) return (int)err;
   const Knots g{(const float*)Q, (const float*)S, (const float*)R, (const float*)q,
                 (const float*)r, (const float*)A, (const float*)Bm, (const float*)f,
                 (const float*)C, (const float*)D, (const float*)d};
   auto out = [](void* p) { return (float*)p; };
-  if (variant == 1) {
-    riccati_backward_kernel<56, 22, 22><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-        g, (const float*)mu, out(K), out(Z), out(kff), out(zff), out(yff), out(Acl),
-        out(Vxx), out(vx), L, BenchDims{nx, nu, nc}, refine_steps);
-  } else if (variant == 2) {
-    riccati_backward_kernel<56, 22, 0><<<batch, kThreads, smem, (cudaStream_t)stream>>>(
-        g, (const float*)mu, out(K), out(Z), out(kff), out(zff), out(yff), out(Acl),
-        out(Vxx), out(vx), L, WalkDims{nx, nu, nc}, refine_steps);
-  } else {
-    kernel_at(index_of(variant))
-        .launch({g, (const float*)mu, out(K), out(Z), out(kff), out(zff), out(yff), out(Acl),
+  const Launch a{g, (const float*)mu, out(K), out(Z), out(kff), out(zff), out(yff), out(Acl),
                  out(Vxx), out(vx), batch, L, RtDims{nx, nu, nc}, refine_steps, smem,
-                 (cudaStream_t)stream});
-  }
+                 (cudaStream_t)stream};
+  if (variant == 1) err = launch_compiled<56, 22, 22>(a, cs);
+  else if (variant == 2) err = launch_compiled<56, 22, 0>(a, cs);
+  else kernel_at(index).launch(a);
+  if (err != cudaSuccess) return (int)err;
   return (int)cudaGetLastError();
 }
 

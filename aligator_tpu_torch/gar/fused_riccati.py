@@ -4,8 +4,9 @@ batch of problems (port of ``aligator_tpu.gar.pallas_riccati``).
 Two hand-written CUDA kernels for Hopper (``sm_90a``) carry this module:
 
 * ``csrc/riccati_backward.cu`` — the reverse-time sweep t = N..0, one
-  thread block per problem, the cost-to-go kept in shared memory between
-  steps (replaces the Pallas ``_backward_kernel``);
+  thread block per problem, or at the compiled widths and small batches one
+  thread-block cluster of 2, 4 or 8 blocks per problem, the cost-to-go kept
+  in shared memory between steps (replaces the Pallas ``_backward_kernel``);
 * ``csrc/riccati_forward.cu`` — the closed-loop rollout in two kernels
   (replaces ``_forward_kernel``): the state chain x⁺ = yff + Acl x, one
   block per problem, the next knots' Acl and yff copied ahead by cp.async
@@ -159,23 +160,41 @@ def _backward_variant(nx: int, nu: int, nc: int) -> int:
     return cuda_build.load("riccati_backward").riccati_backward_variant(nx, nu, nc)
 
 
+@functools.lru_cache(maxsize=None)
+def _backward_cluster(nx: int, nu: int, nc: int, batch: int, device: int) -> int:
+    """The cluster size the C entry takes for this launch on that card."""
+    with torch.cuda.device(device):
+        return cuda_build.load("riccati_backward").riccati_backward_cluster(nx, nu, nc, batch, 0)
+
+
 # The backward kernel's small-width classes (csrc/riccati_backward.cu): the
 # threads of a block and the rows of its Gauss-Jordan chain.
 BACKWARD_THREADS = (32, 64, 128, 256)
 BACKWARD_CHAINS = (8, 16, 32)
 BACKWARD_MAX_NX = 84  # one tile of Q̂ per thread of 256
 _COMPILED = {(56, 22, 22): "bench", (56, 22, 0): "walk"}
+# The compiled widths' cluster sizes (blocks per problem), and those the
+# plan takes: the sizes that chip_smoke.py's k1_cluster_check measured
+# faster than one block per problem at every batch the card held them at
+# (on an H100 80GB HBM3 at 700.00 W: the bench's widths 0.98, 0.93 and
+# 0.91 of one block at 2, 4 and 8, the walk's 1.05, 0.96 and 0.96; PERF.md
+# §6 names the runs; csrc riccati_backward.cu `kClusterTaken` holds the
+# same).
+BACKWARD_CLUSTERS = (1, 2, 4, 8)
+BACKWARD_CLUSTER_SIZES = {"bench": (1, 2, 4, 8), "walk": (1, 4, 8)}
 
 
 class BackwardPlan(NamedTuple):
     """An instantiation of the backward kernel: ``kernel`` is "bench" or
     "walk" (``riccati_backward_kernel`` with those widths compiled in, 256
     threads, a chain of 22) or "small" (``riccati_backward_small<threads,
-    chain>``, widths read at launch)."""
+    chain>``, widths read at launch); ``cluster`` the blocks per problem
+    (a thread-block cluster of 2, 4 or 8 at the compiled widths, else 1)."""
 
     kernel: str
     threads: int
     chain: int
+    cluster: int = 1
 
     @property
     def code(self) -> int:
@@ -209,16 +228,34 @@ def backward_tiles(nx: int, nu: int, nc: int) -> dict:
     return dict(w=nt * (ldM // 4), hats=hats, q=nq, solve=_cdiv(nu + nc, 4) * _cdiv(m, 4))
 
 
-def backward_plan(nx: int, nu: int, nc: int) -> BackwardPlan:
-    """Which instantiation of the backward kernel serves these widths: the
-    compiled bench (56, 22, 22) or walk (56, 22, 0) widths, else the
-    small-width class with the fewest threads of ``BACKWARD_THREADS`` that
-    give every tile of a knot's largest pass (Wᵀ, the hats or the solve)
-    its own thread (256 past that) and the shortest chain of
-    ``BACKWARD_CHAINS`` that holds max(nu, nc). Raises ``ValueError`` for
-    widths the kernel does not take: nu outside 1..32, nc outside 0..32,
-    nx outside 0..84. The C entry ``riccati_backward_variant`` answers
-    ``.code``; chip_smoke.py holds the two together."""
+def backward_cluster(kernel: str, batch: int, sms: int = 0, held: dict | None = None) -> int:
+    """Blocks per problem: the largest of the kernel's
+    ``BACKWARD_CLUSTER_SIZES`` whose ``batch`` clusters the card holds at
+    once, one block to an SM: ``held[C]`` clusters of C where the card's own
+    count is given (``backward_held``; an H100 holds 15 clusters of 8 and 30
+    of 4, as clusters live within a GPC), else sms // C; 1 for the
+    small-width classes."""
+    fits = held if held is not None else {c: sms // c for c in BACKWARD_CLUSTERS}
+    return max(c for c in BACKWARD_CLUSTER_SIZES.get(kernel, (1,))
+               if c == 1 or batch <= fits.get(c, 0))
+
+
+def backward_plan(nx: int, nu: int, nc: int, batch: int = 1, sms: int = 0,
+                  held: dict | None = None) -> BackwardPlan:
+    """Which instantiation of the backward kernel serves these widths, for
+    ``batch`` problems on a card of ``sms`` SMs, or one that holds
+    ``held[C]`` clusters of C at once (neither: no cluster): the
+    compiled bench (56, 22, 22) or walk (56, 22, 0) widths, with
+    ``backward_cluster`` blocks per problem, else the small-width class with
+    the fewest threads of ``BACKWARD_THREADS`` that give every tile of a
+    knot's largest pass (Wᵀ, the hats or the solve) its own thread (256 past
+    that) and the shortest chain of ``BACKWARD_CHAINS`` that holds
+    max(nu, nc). Raises ``ValueError`` for widths the kernel does not take:
+    nu outside 1..32, nc outside 0..32, nx outside 0..84. The C entries
+    ``riccati_backward_variant`` and ``riccati_backward_cluster`` answer
+    ``.code`` and ``.cluster`` (the latter asked with 0 SMs counts the
+    card's own ``held``, as a launch does); chip_smoke.py holds them
+    together."""
     if not (1 <= nu <= 32 and 0 <= nc <= 32):
         raise ValueError(f"nu={nu}, nc={nc}: the backward kernel takes 1 <= nu <= 32 and "
                          f"0 <= nc <= 32 (a factor's rows are a warp's lanes)")
@@ -227,7 +264,7 @@ def backward_plan(nx: int, nu: int, nc: int) -> BackwardPlan:
                          f"(one tile of Q̂ per thread)")
     name = _COMPILED.get((nx, nu, nc))
     if name:
-        return BackwardPlan(name, 256, 22)
+        return BackwardPlan(name, 256, 22, backward_cluster(name, batch, sms, held))
     t = backward_tiles(nx, nu, nc)
     tiles = max(t["w"], t["hats"], t["solve"])
     threads = next((n for n in BACKWARD_THREADS if n >= tiles), BACKWARD_THREADS[-1])
@@ -257,15 +294,38 @@ def backward_blocks_per_sm(nx: int, nu: int, nc: int) -> int:
     return n
 
 
+def backward_max_clusters(nx: int, nu: int, nc: int, cluster: int) -> int:
+    """Clusters of ``cluster`` blocks of the backward kernel that the current
+    card holds at once at these dims (``cudaOccupancyMaxActiveClusters``;
+    1: blocks without a cluster)."""
+    n = cuda_build.load("riccati_backward").riccati_backward_max_clusters(nx, nu, nc, cluster)
+    if n < 0:
+        raise RuntimeError(f"riccati_backward cluster occupancy query failed: cudaError {-n}")
+    return n
+
+
+def backward_held(nx: int, nu: int, nc: int) -> dict:
+    """``backward_plan``'s ``held`` on the current card: clusters of each size
+    it holds at once at these compiled widths."""
+    return {c: backward_max_clusters(nx, nu, nc, c) for c in BACKWARD_CLUSTERS}
+
+
 @named_scope("gar.fused.backward")
-def backward_sweep_batched(knots: Knot, mueq: torch.Tensor, refine_steps: int = 1):
+def backward_sweep_batched(knots: Knot, mueq: torch.Tensor, refine_steps: int = 1,
+                           cluster: int = 0):
     """Fused backward sweep over a batch of stacked knot sets.
 
     knots: Knot with leading axes (B, N+1); mueq: (B,) or a scalar.
     Returns (Gains, CostToGo) with leading axes (B, N+1). nth must be 0.
     CPU tensors go through the plain version; CUDA tensors launch
-    ``csrc/riccati_backward.cu``.
+    ``csrc/riccati_backward.cu``. ``cluster`` sets the blocks per problem
+    at the compiled widths (1, 2, 4 or 8; 0, the default, takes
+    ``backward_plan``'s, which the C entry computes alike);
+    ``last_cluster`` records the size of the latest launch.
     """
+    if cluster not in (0,) + BACKWARD_CLUSTERS:
+        raise ValueError(f"cluster={cluster}: the backward kernel takes 1, 2, 4 or 8 blocks per "
+                         f"problem (0: the plan's)")
     if knots.Gth.shape[-1] != 0:
         raise NotImplementedError(
             "fused riccati: θ-blocks (nth > 0) use gar.riccati (the serial path)")
@@ -283,10 +343,18 @@ def backward_sweep_batched(knots: Knot, mueq: torch.Tensor, refine_steps: int = 
     mu = batch_mu(mueq, Bsz, knots.Q).contiguous()
     _vec_check("mueq", mu, (Bsz,), knots.Q.device)
 
-    if _backward_variant(nx, nu, nc) < 0:
+    variant = _backward_variant(nx, nu, nc)
+    if variant < 0:
         raise ValueError(
             f"dims nx={nx}, nu={nu}, nc={nc}: the backward kernel takes nu, nc <= 32 "
             f"and nx <= 84 (one tile of Q̂ per thread)")
+    if cluster > 1 and variant > 2:
+        raise ValueError(f"cluster={cluster}: the backward kernel takes clusters at the compiled "
+                         f"widths only, one block per problem at nx={nx}, nu={nu}, nc={nc}")
+    dev_index = knots.Q.device.index
+    if dev_index is None:
+        dev_index = torch.cuda.current_device()
+    cs = cluster or _backward_cluster(nx, nu, nc, Bsz, dev_index)
     smem = _backward_smem_bytes(nx, nu, nc)
     if smem > MAX_SMEM_BYTES:
         raise ValueError(
@@ -303,17 +371,20 @@ def backward_sweep_batched(knots: Knot, mueq: torch.Tensor, refine_steps: int = 
         err = fn(
             *(named[f].data_ptr() for f in _KNOT_SHAPES), mu.data_ptr(),
             *(outs[n].data_ptr() for n in order_out),
-            Bsz, L, nx, nu, nc, int(refine_steps),
+            Bsz, L, nx, nu, nc, int(refine_steps), cs,
             torch.cuda.current_stream(knots.Q.device).cuda_stream,
         )
     if err != 0:
-        raise RuntimeError(f"riccati_backward kernel launch failed: cudaError {err}")
+        raise RuntimeError(f"riccati_backward kernel launch failed (cluster of {cs}): "
+                           f"cudaError {err}")
     backward_sweep_batched.launches += 1
+    backward_sweep_batched.last_cluster = cs
     return _pack(outs["kff"], outs["zff"], outs["yff"], outs["K"], outs["Z"],
                  outs["Acl"], outs["Vxx"], outs["vx"])
 
 
 backward_sweep_batched.launches = 0
+backward_sweep_batched.last_cluster = 0
 
 
 # ---------------------------------------------------------------------------

@@ -3,8 +3,9 @@ card.
 
 Builds an instrumented copy of ``csrc/riccati_backward.cu`` (or of another
 source with the same C entry points, such as an earlier version of it):
-after every barrier of every kernel's time loop (``__syncthreads()``, or
-the source's own ``bar_sync<…>()``), thread 0 of each block reads
+after every barrier of every kernel's time loop (``__syncthreads()``, the
+source's own ``bar_sync<…>()`` and ``team_sync<…>()``, and the cluster
+barrier's wait), thread 0 of each block reads
 ``clock64()`` and adds the cycles since its previous stamp to that
 barrier's counter, in shared memory; the counters of every block, with the
 index and number of phases of the loop that ran, go to a device array read back
@@ -19,13 +20,17 @@ the instrumented build. The stamps cost time of their own (registers, one
 shared-memory add per barrier), so the instrumented sweep is timed beside
 the split; the kernel's own times are chip_smoke.py's. ``--min-threads`` runs
 the same widths again with the small-width kernel's classes given at least
-T threads per block, to see what more warps per problem would buy.
+T threads per block, to see what more warps per problem would buy;
+``--cluster C`` runs the compiled widths' kernel with C blocks per problem
+(1 without a cluster, 2, 4 or 8 a thread-block cluster; 0, the default,
+the size the C entry picks), each phase averaged over every block of every
+cluster.
 
 Run on a machine with a CUDA card::
 
     python -m aligator_tpu_torch.probes.k1_phases [--source FILE]
         [--widths NX NU NC [--widths NX NU NC ...]] [--steps N [N ...]]
-        [--batch B [B ...]] [--min-threads T [T ...]]
+        [--batch B [B ...]] [--min-threads T [T ...]] [--cluster C [C ...]]
 
 e.g. the solo jump's and the quadrotor's widths in one build:
 ``--widths 36 12 0 --widths 12 4 6 --steps 45 60 --batch 16 256``.
@@ -50,7 +55,9 @@ NSTEPS = 100
 BATCHES = (256, 64)
 MAX_PHASES = 64  # counters per block; the last two slots: the loop's index and phase count
 LOOP = "for (int t = L - 1; t >= 0; --t) {"
-BARRIER = re.compile(r"(?:__syncthreads\(\)|bar_sync<[^>]*>\(\));")
+BARRIER = re.compile(
+    r"(?:__syncthreads\(\)|bar_sync<[^>]*>\(\)|team_sync<[^>]*>\(\)|"
+    r"cg::cluster_group::barrier_wait\(\));")
 _I, _P = ctypes.c_int, ctypes.c_void_p
 
 
@@ -149,10 +156,12 @@ def build(src_path: Path, floors=(None,)) -> list:
         if proc.returncode != 0:
             raise RuntimeError(f"nvcc failed on the instrumented source:\n{log}")
         lib = ctypes.CDLL(str(so))
-        lib.riccati_backward_f32.argtypes = [_P] * 20 + [_I] * 6 + [_P]
+        lib.riccati_backward_f32.argtypes = [_P] * 20 + [_I] * 7 + [_P]
         lib.riccati_backward_f32.restype = _I
         lib.riccati_backward_variant.argtypes = [_I] * 3
         lib.riccati_backward_variant.restype = _I
+        lib.riccati_backward_cluster.argtypes = [_I] * 5
+        lib.riccati_backward_cluster.restype = _I
         lib.k1_prof_read.argtypes = [_P, _I]
         lib.k1_prof_read.restype = _I
         out.append((lib, loops, log))
@@ -174,9 +183,10 @@ def _knots(B: int, L: int, nx: int, nu: int, nc: int, dev, gen):
             r(nc)]
 
 
-def split(lib, widths, N: int, B: int, dev, gen) -> tuple[float, int, list]:
+def split(lib, widths, N: int, B: int, dev, gen, cluster: int = 0) -> tuple[float, int, list]:
     """(ms of one instrumented sweep, the index of the time loop that ran,
-    its mean cycles per knot in each phase)."""
+    its mean cycles per knot in each phase, over every block of the launch:
+    ``cluster`` blocks per problem, 0 for the C entry's choice)."""
     nx, nu, nc = widths
     L = N + 1
     ins = [a.contiguous() for a in _knots(B, L, nx, nu, nc, dev, gen)]
@@ -188,7 +198,7 @@ def split(lib, widths, N: int, B: int, dev, gen) -> tuple[float, int, list]:
     def launch():
         err = lib.riccati_backward_f32(*(a.data_ptr() for a in ins), mu.data_ptr(),
                                        *(o.data_ptr() for o in outs), B, L, nx, nu, nc, 1,
-                                       stream)
+                                       cluster, stream)
         if err != 0:
             raise RuntimeError(f"instrumented kernel launch failed: cudaError {err}")
 
@@ -200,12 +210,13 @@ def split(lib, widths, N: int, B: int, dev, gen) -> tuple[float, int, list]:
         launch()
     e1.record()
     torch.cuda.synchronize()
-    h = (ctypes.c_longlong * (B * MAX_PHASES))()
-    if lib.k1_prof_read(ctypes.addressof(h), B * MAX_PHASES) != 0:
+    blocks = B * (cluster or lib.riccati_backward_cluster(nx, nu, nc, B, 0))
+    h = (ctypes.c_longlong * (blocks * MAX_PHASES))()
+    if lib.k1_prof_read(ctypes.addressof(h), blocks * MAX_PHASES) != 0:
         raise RuntimeError("reading the phase counters failed")
     index, phases = h[MAX_PHASES - 2], h[MAX_PHASES - 1]
-    per_block = [h[b * MAX_PHASES:b * MAX_PHASES + phases] for b in range(B)]
-    mean = [sum(c[p] for c in per_block) / B / L for p in range(phases)]
+    per_block = [h[b * MAX_PHASES:b * MAX_PHASES + phases] for b in range(blocks)]
+    mean = [sum(c[p] for c in per_block) / blocks / L for p in range(phases)]
     return e0.elapsed_time(e1) / 5, index, mean
 
 
@@ -240,6 +251,9 @@ def main(argv=None) -> int:
     ap.add_argument("--min-threads", type=int, nargs="+", default=[], metavar="T",
                     help="also run the small-width kernel with at least T threads per block "
                          "(one instrumented build each)")
+    ap.add_argument("--cluster", type=int, nargs="+", default=[0], metavar="C",
+                    help="blocks per problem at the compiled widths: 1, 2, 4, 8, or 0 for "
+                         "the C entry's choice (each in turn)")
     args = ap.parse_args(argv)
     widths = args.widths or [list(BENCH)]
     if len(args.steps) not in (1, len(widths)):
@@ -255,25 +269,28 @@ def main(argv=None) -> int:
         if floor is None:
             print_ptxas(log)
         for w, N in zip(widths, steps):
-            report(lib, loops, name, tuple(w), N, args.batch, dev)
+            report(lib, loops, name, tuple(w), N, args.batch, dev, args.cluster)
     return 0
 
 
-def report(lib, loops, source: str, widths: tuple, N: int, batches, dev) -> None:
-    """Prints the split at these widths and horizon at each batch size."""
+def report(lib, loops, source: str, widths: tuple, N: int, batches, dev, clusters=(0,)) -> None:
+    """Prints the split at these widths and horizon at each batch size and
+    cluster size (the small widths take 1 or 0 only)."""
     nx, nu, nc = widths
     variant = lib.riccati_backward_variant(nx, nu, nc)
     gen = torch.Generator(device=dev).manual_seed(0)
     for B in batches:
-        ms, loop, cyc = split(lib, widths, N, B, dev, gen)
-        total = sum(cyc)
-        lines = loops[loop]
-        print(f"K1 phases, {source}, nx={nx} nu={nu} nc={nc} (variant {variant}, time loop "
-              f"{loop}), B={B} N={N}: instrumented sweep {ms:.4f} ms, {ms / (N + 1) * 1e3:.2f} us "
-              f"per knot, {total:.0f} cycles per knot")
-        print("  " + "  ".join(
-            f"[{p}{'' if ln is None else f' :{ln}'}] {c:.0f} {100 * c / total:.1f}%"
-            for p, (c, ln) in enumerate(zip(cyc, lines))))
+        for cluster in clusters if variant in (1, 2) else (0,):
+            cs = cluster or lib.riccati_backward_cluster(nx, nu, nc, B, 0)
+            ms, loop, cyc = split(lib, widths, N, B, dev, gen, cs)
+            total = sum(cyc)
+            lines = loops[loop]
+            print(f"K1 phases, {source}, nx={nx} nu={nu} nc={nc} (variant {variant}, cluster "
+                  f"{cs}, time loop {loop}), B={B} N={N}: instrumented sweep {ms:.4f} ms, "
+                  f"{ms / (N + 1) * 1e3:.2f} us per knot, {total:.0f} cycles per knot")
+            print("  " + "  ".join(
+                f"[{p}{'' if ln is None else f' :{ln}'}] {c:.0f} {100 * c / total:.1f}%"
+                for p, (c, ln) in enumerate(zip(cyc, lines))))
 
 
 if __name__ == "__main__":

@@ -27,8 +27,10 @@ SIGNATURES = {
     "riccati_backward": {
         "riccati_backward_smem_bytes": ([_I] * 3, ctypes.c_longlong),
         "riccati_backward_variant": ([_I] * 3, _I),
+        "riccati_backward_cluster": ([_I] * 5, _I),
         "riccati_backward_blocks_per_sm": ([_I] * 3, _I),
-        "riccati_backward_f32": ([_P] * 20 + [_I] * 6 + [_P], _I),
+        "riccati_backward_max_clusters": ([_I] * 4, _I),
+        "riccati_backward_f32": ([_P] * 20 + [_I] * 7 + [_P], _I),
     },
     "riccati_forward": {
         "riccati_forward_chain_smem_bytes": ([_I] * 2, ctypes.c_longlong),

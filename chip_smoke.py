@@ -400,12 +400,16 @@ def k2_halves(g, v, x0, l0):
 K1_REFERENCE_BEHAVIOUR = {(NX, NU, NU, 1e-6): "reference behaviour (the TPU kernel fails here too)"}
 
 
-def k1_plan_agrees() -> None:
-    """fused_riccati.backward_plan (pure Python) and the C entry
-    riccati_backward_variant name the same instantiation, or both refuse,
-    at every nx in 0..85, nu and nc in 0..33."""
+def k1_plan_agrees(dev) -> None:
+    """fused_riccati.backward_plan (pure Python) and the C entries
+    riccati_backward_variant and riccati_backward_cluster name the same
+    instantiation, or both refuse, at every nx in 0..85, nu and nc in
+    0..33, and the same blocks per problem there at B = 1, 16, 64 and 256
+    on 132 SMs; at the compiled widths and one small width for every
+    B <= 1024 on 132 SMs and on this card's own count (the C entry asked
+    with 0, as a launch asks it)."""
     lib = cuda_build.load("riccati_backward")
-    n = 0
+    n = n_cluster = 0
     for nx in range(86):
         for nu in range(34):
             for nc in range(34):
@@ -417,8 +421,27 @@ def k1_plan_agrees() -> None:
                 check((got < 0) == (want < 0) and (want < 0 or got == want),
                       f"backward_plan({nx}, {nu}, {nc}) -> {want}, the C entry {got}")
                 n += 1
+                if want < 0:
+                    continue
+                for B in (1, 16, 64, 256):
+                    c = lib.riccati_backward_cluster(nx, nu, nc, B, 132)
+                    check(c == FR.backward_plan(nx, nu, nc, B, 132).cluster,
+                          f"K1 cluster at {nx, nu, nc} B={B}: the C entry {c}")
+                    n_cluster += 1
+    held = {}
+    for widths in ((NX, NU, NU), (NX, NU, 0), (12, 4, 6)):
+        on_card = FR.backward_held(*widths) if widths[1:] != (4, 6) else None
+        held[widths] = on_card
+        for B in range(1, 1025):
+            for kw, ask in ((dict(sms=132), 132), (dict(held=on_card), 0)):
+                c = lib.riccati_backward_cluster(*widths, B, ask)
+                check(c == FR.backward_plan(*widths, B, **kw).cluster,
+                      f"K1 cluster at {widths} B={B} ({kw}): the C entry {c}")
+                n_cluster += 1
     print(f"K1 backward_plan agrees with riccati_backward_variant at all {n} widths "
-          f"(nx 0..85, nu and nc 0..33)")
+          f"(nx 0..85, nu and nc 0..33) and with riccati_backward_cluster at {n_cluster} "
+          f"(widths, B, SMs): at 132 SMs and on this card, which holds clusters of 1, 2, 4, 8 "
+          f"{json.dumps({str(w): h for w, h in held.items() if h})}")
 
 
 def class_boundary_widths() -> list:
@@ -588,7 +611,7 @@ def kernels_phase(dev):
 
     check("bench" in variants and any(v.startswith("small<") for v in variants),
           f"K1's bench and small-width kernels checked: {variants}")
-    k1_plan_agrees()
+    k1_plan_agrees(dev)
     k1_class_boundaries(dev)
 
     # K2 alone: the talos walk's widths (nc = 0, N = 195), the bench case's
@@ -634,6 +657,7 @@ def kernels_phase(dev):
     # times at the bench widths: kernel vs plain version on the same inputs
     kn, mu = report["knots"], report["mu"]
     k1_ms = cuda_ms(lambda: FR.backward_sweep_batched(kn, mu), 10)
+    c256 = FR.backward_sweep_batched.last_cluster
     k1_plain = cuda_ms(lambda: FR.backward_sweep_batched_ref(kn, mu), 2)
     k2_ms = cuda_ms(lambda: FR.forward_sweep_batched(gp, vp, x0, l0), 20)
     k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
@@ -642,16 +666,17 @@ def kernels_phase(dev):
     # both at the MPC batch: the first MPC_BATCH problems of the same inputs
     kn64 = type(kn)(*(a[:MPC_BATCH].contiguous() for a in kn))
     k1_ms64 = cuda_ms(lambda: FR.backward_sweep_batched(kn64, mu[:MPC_BATCH]), 10)
+    c64 = FR.backward_sweep_batched.last_cluster
     b1_64, _ = bound_ms(*backward_cost(MPC_BATCH, L, nx, nu, nc, 1))
     g64, v64 = (type(t)(*(a[:MPC_BATCH] for a in t)) for t in (gp, vp))
     x64, l64 = x0[:MPC_BATCH], l0[:MPC_BATCH]
     k2_ms64 = cuda_ms(lambda: FR.forward_sweep_batched(g64, v64, x64, l64), 20)
     b2_64, _ = bound_ms(*forward_cost(MPC_BATCH, L, nx, nu, nc))
-    print(f"bench widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, "
-          f"bound {b1:.4f} ms by {by1}); K2 {k2_ms:.4f} ms (plain {k2_plain:.3f} ms, "
+    print(f"bench widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms at C={c256} (plain {k1_plain:.3f} "
+          f"ms, bound {b1:.4f} ms by {by1}); K2 {k2_ms:.4f} ms (plain {k2_plain:.3f} ms, "
           f"bound {b2:.4f} ms by {by2})")
-    print(f"bench widths B={MPC_BATCH} L={L}: K1 {k1_ms64:.4f} ms (bound {b1_64:.4f} ms); "
-          f"K2 {k2_ms64:.4f} ms (bound {b2_64:.4f} ms)")
+    print(f"bench widths B={MPC_BATCH} L={L}: K1 {k1_ms64:.4f} ms at C={c64} (bound "
+          f"{b1_64:.4f} ms); K2 {k2_ms64:.4f} ms (bound {b2_64:.4f} ms)")
     halves = k2_halves(gp, vp, x0, l0)
     halves64 = k2_halves(g64, v64, x64, l64)
     return [
@@ -659,8 +684,8 @@ def kernels_phase(dev):
              source="aligator_tpu_torch/csrc/riccati_backward.cu",
              replaces="aligator_tpu/gar/pallas_riccati.py:225",
              max_abs_err=report["err_b"], ms=k1_ms, plain_ms=k1_plain,
-             bound_ms=b1, bound_by=by1, library_ms=None,
-             ms_b64=k1_ms64, bound_ms_b64=b1_64),
+             bound_ms=b1, bound_by=by1, library_ms=None, cluster=c256,
+             ms_b64=k1_ms64, bound_ms_b64=b1_64, cluster_b64=c64),
         dict(name="riccati_forward", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_forward.cu",
              replaces="aligator_tpu/gar/pallas_riccati.py:549",
@@ -958,6 +983,7 @@ def lq_phase(dev):
     for name, fn in solvers.items():
         run = lambda: fn(lq, mu)
         out = run()  # the result, and a warm-up: one-time set-ups are not counted
+        c_row = FR.backward_sweep_batched.last_cluster
         _, syncs, where = count_syncs(run)
         ref = out if name == "serial" else ref
         err = rel_err(out, ref)
@@ -978,7 +1004,8 @@ def lq_phase(dev):
               f"{[round(w, 3) for w in walls]} (median {table[name]['wall_ms']:.3f}), device "
               f"kernels {len(kern) if kern else 'not measured'}, busy ms "
               f"{'%.3f' % (busy / 1e3) if seen else 'not measured'}"
-              f"{f' (the trace holds {ours})' if name == 'pallas' else ''}, host syncs "
+              f"{f' (the trace holds {ours}; K1 at C={c_row})' if name == 'pallas' else ''}"
+              f", host syncs "
               f"{syncs} {where}, max|d|/max|.| against serial {err:.3e}")
         check(err <= 1e-3, f"lq long {name} against serial: {err}")
     launches = read_counts()
@@ -990,10 +1017,11 @@ def lq_phase(dev):
     g, v = FR.backward_sweep_batched(knots, mu_t)
     x0 = torch.zeros(1, NX, device=dev)
     k1_ms = cuda_ms(lambda: FR.backward_sweep_batched(knots, mu_t), 3)
+    c1 = FR.backward_sweep_batched.last_cluster
     k2_ms = cuda_ms(lambda: FR.forward_sweep_batched(g, v, x0, x0), 10)
     b1, by1 = bound_ms(*backward_cost(1, LQ_LONG_N + 1, NX, NU, NU, 1))
     b2, by2 = bound_ms(*forward_cost(1, LQ_LONG_N + 1, NX, NU, NU))
-    print(f"lq long: K1 alone at B=1 L={LQ_LONG_N + 1} {k1_ms:.4f} ms (bound {b1:.4f} ms by "
+    print(f"lq long: K1 alone at B=1 L={LQ_LONG_N + 1} C={c1} {k1_ms:.4f} ms (bound {b1:.4f} ms by "
           f"{by1}, {k1_ms / (LQ_LONG_N + 1) * 1e3:.2f} us per knot); K2 {k2_ms:.4f} ms (bound "
           f"{b2:.4f} ms by {by2}); launches in the comparison K1={k1} K2={k2}")
     print(f"lq long summary: {json.dumps(table)}")
@@ -1011,7 +1039,7 @@ def mpc_phase(dev):
     state = init_mpc_state(problem)
     rng = np.random.default_rng(3)
     reset_counts()
-    lats, per_step = [], []
+    lats, per_step, clusters = [], [], set()
     for _ in range(MPC_STEPS):
         x = torch.as_tensor(0.1 * rng.standard_normal((MPC_BATCH, NX)),
                             dtype=torch.float32, device=dev)
@@ -1020,13 +1048,14 @@ def mpc_phase(dev):
         torch.cuda.synchronize()
         lats.append((time.perf_counter() - t0) * 1e3)
         per_step.append(read_counts()["riccati_backward"] - sum(per_step))
+        clusters.add(FR.backward_sweep_batched.last_cluster)
         check(tuple(u.shape) == (MPC_BATCH, NU) and bool(torch.isfinite(u).all()),
               "MPC control finite, of the expected shape")
         check(bool(torch.isfinite(state.xs).all()), "MPC warm start finite")
     counts = read_counts()
     k1, k2 = counts["riccati_backward"], counts["riccati_forward"]
     print(f"mpc: {MPC_STEPS} steps at B={MPC_BATCH}, step ms {lats}, launches "
-          f"K1={k1} K2={k2} (K1 per step {per_step})")
+          f"K1={k1} K2={k2} (K1 per step {per_step}), K1 at C={sorted(clusters)}")
     check(k1 == k2 >= MPC_STEPS, "MPC kernel launch counts")
 
 
@@ -1076,9 +1105,11 @@ def k1_walk_check(dev):
     mu = torch.full((Bsz,), 1e-8, device=dev)
     L = N + 1
     k1_ms = cuda_ms(lambda: FR.backward_sweep_batched(knots, mu), 10)
+    c16 = FR.backward_sweep_batched.last_cluster
     k1_plain = cuda_ms(lambda: FR.backward_sweep_batched_ref(knots, mu), 2)
     kn1 = type(knots)(*(a[:1].contiguous() for a in knots))
     k1_ms1 = cuda_ms(lambda: FR.backward_sweep_batched(kn1, mu[:1]), 10)
+    c1 = FR.backward_sweep_batched.last_cluster
     gen = torch.Generator(device=dev).manual_seed(5)
     x0 = torch.randn(Bsz, nx, device=dev, generator=gen)
     l0 = torch.randn(Bsz, nx, device=dev, generator=gen)
@@ -1089,25 +1120,134 @@ def k1_walk_check(dev):
     b1_1, by1_1 = bound_ms(*backward_cost(1, L, nx, nu, nc, 1))
     b2, by2 = bound_ms(*forward_cost(Bsz, L, nx, nu, nc))
     per_sm = FR.backward_blocks_per_sm(nx, nu, nc)
-    print(f"walk widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, bound "
-          f"{b1:.4f} ms by {by1}, {k1_ms / b1:.1f}x; {k1_ms / L * 1e3:.2f} us per knot; "
-          f"{per_sm} blocks per SM); K1 at B=1 {k1_ms1:.4f} ms (bound {b1_1:.4f} ms by "
-          f"{by1_1}); K2 {k2_ms:.4f} ms (plain {k2_plain:.3f} ms, bound {b2:.4f} ms by {by2}); "
-          f"K2 max abs err {json.dumps(errs_f)}")
+    print(f"walk widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms at C={c16} (plain {k1_plain:.3f} ms, "
+          f"bound {b1:.4f} ms by {by1}, {k1_ms / b1:.1f}x; {k1_ms / L * 1e3:.2f} us per knot; "
+          f"{per_sm} blocks per SM without a cluster); K1 at B=1 {k1_ms1:.4f} ms at C={c1} "
+          f"(bound {b1_1:.4f} ms by {by1_1}); K2 {k2_ms:.4f} ms (plain {k2_plain:.3f} ms, bound "
+          f"{b2:.4f} ms by {by2}); K2 max abs err {json.dumps(errs_f)}")
     return [
         dict(name="riccati_backward_walk", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_backward.cu",
              replaces="aligator_tpu/gar/pallas_riccati.py:225",
              instantiation="riccati_backward_kernel<56, 22, 0>", path="talos walk",
              max_abs_err=max(max(e.values()) for e in errs.values()), ms=k1_ms,
-             plain_ms=k1_plain, bound_ms=b1, bound_by=by1, library_ms=None,
-             ms_b1=k1_ms1, bound_ms_b1=b1_1),
+             plain_ms=k1_plain, bound_ms=b1, bound_by=by1, library_ms=None, cluster=c16,
+             ms_b1=k1_ms1, bound_ms_b1=b1_1, cluster_b1=c1),
         dict(name="riccati_forward_walk", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_forward.cu",
              replaces="aligator_tpu/gar/pallas_riccati.py:549", path="talos walk",
              max_abs_err=max(errs_f.values()), ms=k2_ms, plain_ms=k2_plain, bound_ms=b2,
              bound_by=by2, library_ms=None),
     ]
+
+
+def off_by(a, b) -> float:
+    """0 where a and b are the same bits; else max|a - b| / max(max|b|, 1)
+    over their finite entries, inf where they are not finite at the same
+    places."""
+    if torch.equal(a.view(torch.int32), b.view(torch.int32)):
+        return 0.0
+    fin = torch.isfinite(b)
+    if not torch.equal(torch.isfinite(a), fin):
+        return float("inf")
+    if not bool(fin.any()):
+        return 0.0
+    return max_err(a[fin], b[fin]) / max(float(b[fin].abs().max()), 1.0)
+
+
+# K1's compiled widths at small batches: the batches of the lqr56
+# MPC (64), the walk (16) and the MPC regime (1), and the full card (256)
+K1_CLUSTER_BATCHES = (1, 16, 64, 256)
+K1_CLUSTER_WIDTHS = {"bench": (NX, NU, NU, NSTEPS, (1e-2, 1e-6)),
+                     "walk": (NX, NU, 0, 2 * WALK_TSS + 3 * WALK_TDS, (1e-2, 1e-8))}
+
+
+def k1_cluster_check(dev) -> dict:
+    """K1's compiled widths, the bench's (N = 100) and the walk's (N = 195),
+    at B = 1, 16, 64 and 256 with every cluster size the card holds there
+    (B clusters resident at once, ``cudaOccupancyMaxActiveClusters``): each
+    held against its plain version on the first B problems of one random
+    batch, under the gate 1e-4·max|·|, at µ = 1e-2 and at the widths' own
+    µ (the walk's 1e-8; the bench's 1e-6, C5's reference behaviour,
+    printed and not gated, as ``kernels_phase`` prints it), against the
+    kernel without a cluster on the same inputs (within 1e-4·max|·|, the
+    plain version's gate: the cluster variant takes Vxx's product the other
+    way round, and its rounding differs over the N + 1 knots) and against
+    the cluster of 2 (the same bits: every size forms each entry alike);
+    then timed beside its bound. Returns, per widths, the ms of each
+    (B, C)."""
+    t0 = time.perf_counter()
+    times = {}
+    for name, (nx, nu, nc, N, mus) in K1_CLUSTER_WIDTHS.items():
+        L = N + 1
+        bmax = max(K1_CLUSTER_BATCHES)
+        lq = lqr_from_numpy(random_lq_arrays(np.random.default_rng(41), bmax, N, nx, nu, nc),
+                            device=dev, dtype=torch.float32)
+        knots = knots_of(lq)
+        resident = {c: FR.backward_max_clusters(nx, nu, nc, c) for c in FR.BACKWARD_CLUSTERS}
+        plain = {mu: FR.backward_sweep_batched_ref(knots, torch.full((bmax,), mu, device=dev))
+                 for mu in mus}
+        for B in K1_CLUSTER_BATCHES:
+            kn = type(knots)(*(a[:B].contiguous() for a in knots))
+            b1, by1 = bound_ms(*backward_cost(B, L, nx, nu, nc, 1))
+            one = {}
+            for c in (c for c in FR.BACKWARD_CLUSTERS if resident[c] >= B):
+                errs, same = {}, {}
+                for mu_val in mus:
+                    mu = torch.full((B,), mu_val, device=dev)
+                    gk, vk = FR.backward_sweep_batched(kn, mu, cluster=c)
+                    check(FR.backward_sweep_batched.last_cluster == c, f"K1 {name} ran at C={c}")
+                    torch.cuda.synchronize()
+                    gp, vp = plain[mu_val]
+                    known = K1_REFERENCE_BEHAVIOUR.get((nx, nu, nc, mu_val))
+                    e, d = {}, {}
+                    for out in ("kff", "zff", "yff", "K", "Z", "Acl", "Vxx", "vx"):
+                        a = getattr(gk, out) if hasattr(gk, out) else getattr(vk, out)
+                        ref = (getattr(gp, out) if hasattr(gp, out) else getattr(vp, out))[:B]
+                        if not a.numel():
+                            continue
+                        e[out] = max_err(a, ref)
+                        if known is None:
+                            check(e[out] <= tol(ref, 0.0, "rel"),
+                                  f"K1 {name} B={B} C={c} mu={mu_val:g} {out}: {e[out]}")
+                        if c == 2:
+                            one[(mu_val, out, 2)] = a
+                        elif c > 2:
+                            check(torch.equal(a.view(torch.int32),
+                                              one[(mu_val, out, 2)].view(torch.int32)),
+                                  f"K1 {name} B={B} C={c} mu={mu_val:g} {out}: the bits of C=2")
+                        if c == 1:
+                            one[(mu_val, out)] = a
+                        else:
+                            d[out] = off_by(a, one[(mu_val, out)])
+                            check(known is not None or d[out] <= 1e-4,
+                                  f"K1 {name} B={B} C={c} mu={mu_val:g} {out} against C=1: "
+                                  f"{d[out]}")
+                    errs[mu_val] = max(e.values())
+                    same[mu_val] = max(d.values()) if d else 0.0
+                mu = torch.full((B,), mus[0], device=dev)
+                ms = cuda_ms(lambda: FR.backward_sweep_batched(kn, mu, cluster=c),
+                             10 if B * L < 40000 else 5)
+                times[(name, B, c)] = ms
+                ref = times[(name, B, 1)]
+                print(f"k1 cluster: {name} widths nx={nx} nu={nu} nc={nc} B={B} N={N} C={c}: "
+                      f"{ms:.4f} ms ({ms / ref:.3f} of C=1), {ms / L * 1e3:.2f} us per knot, "
+                      f"bound {b1:.4f} ms by {by1} ({ms / b1:.1f}x), max active clusters "
+                      f"{resident[c]}, max abs err against plain "
+                      f"{json.dumps({f'{k:g}': v for k, v in errs.items()})}, against C=1 "
+                      f"{json.dumps({f'{k:g}': v for k, v in same.items()})}")
+        best = {B: min((t, c) for (n, b, c), t in times.items() if n == name and b == B)[1]
+                for B in K1_CLUSTER_BATCHES}
+        faster = [c for c in FR.BACKWARD_CLUSTERS[1:]
+                  if all(t < times[(name, b, 1)] for (n, b, cc), t in times.items()
+                         if n == name and cc == c)]
+        print(f"k1 cluster: {name} widths, fastest C by batch {json.dumps(best)}; faster than "
+              f"C=1 at every batch held: C in {faster}; the plan's sizes "
+              f"{FR.BACKWARD_CLUSTER_SIZES[name]}, its choice by batch on this card "
+              f"{json.dumps({B: FR.backward_plan(nx, nu, nc, B, held=resident).cluster
+                             for B in K1_CLUSTER_BATCHES})}")
+    print(f"k1 cluster check: {time.perf_counter() - t0:.1f} s")
+    return times
 
 
 def walk_phase(dev):
@@ -1137,7 +1277,7 @@ def walk_phase(dev):
           f"B={WALK_BATCH}; fused solve (first call {first_s:.2f} s): conv "
           f"{int(res.conv.sum())}/{WALK_BATCH}, iterations {iters}, prim max "
           f"{float(res.prim_infeas.max()):.3e}, dual max {float(res.dual_infeas.max()):.3e}, "
-          f"K1 launches {k1}, K2 launches {k2}")
+          f"K1 launches {k1} at C={FR.backward_sweep_batched.last_cluster}, K2 launches {k2}")
     check(tuple(res.xs.shape) == (WALK_BATCH, N + 1, nq + nv)
           and bool(torch.isfinite(res.xs).all()), "walk xs finite, of the expected shape")
     check(bool(res.conv.all()), "every walk scenario converges")
@@ -1210,7 +1350,7 @@ def walk_phase(dev):
     for _ in range(WALK_MPC_SETTLE):
         u, state, r, p1 = mpc_step(p1, mpc_settings, x, state)
     torch.cuda.synchronize()
-    lats, prims, duals, per_step = [], [], [], []
+    lats, prims, duals, per_step, clusters = [], [], [], [], set()
     for _ in range(WALK_MPC_STEPS):
         dvs = 0.005 * rng.standard_normal(nv).astype(np.float32)
         x = torch.as_tensor(np.concatenate([x0[:nq], x0[nq:] + dvs])[None], device=dev)
@@ -1221,14 +1361,27 @@ def walk_phase(dev):
         lats.append((time.perf_counter() - t0) * 1e3)
         c = read_counts()
         per_step.append((c["riccati_backward"], c["riccati_forward"]))
+        clusters.add(FR.backward_sweep_batched.last_cluster)
         prims.append(float(r.prim_infeas[0]))
         duals.append(float(r.dual_infeas[0]))
         check(tuple(u.shape) == (1, problem.nu) and bool(torch.isfinite(u).all()),
               "walk MPC control finite, of the expected shape")
     print(f"walk mpc: {WALK_MPC_SETTLE} settle + {WALK_MPC_STEPS} timed steps at B=1, step ms "
           f"{[round(v, 1) for v in lats]} (median {float(np.median(lats)):.1f}), prim "
-          f"{prims}, dual {duals}, (K1, K2) launches per step {per_step}")
+          f"{prims}, dual {duals}, (K1, K2) launches per step {per_step}, K1 at "
+          f"C={sorted(clusters)}")
     check(all(a == b >= 1 for a, b in per_step), "walk MPC kernel launch counts")
+    # K1's device time in one more step, from a device-only trace
+    dvs = 0.005 * rng.standard_normal(nv).astype(np.float32)
+    x = torch.as_tensor(np.concatenate([x0[:nq], x0[nq:] + dvs])[None], device=dev)
+    holder = {}
+    _, kern, busy, by_name = trace_device(
+        lambda: holder.update(out=mpc_step(p1, mpc_settings, x, state)), host_ops=False)
+    k1_us = sum(v for n, v in by_name.items() if "riccati_backward" in n)
+    k1_n = sum(1 for e in kern if "riccati_backward" in e.name())
+    print(f"walk mpc: one traced step: K1 {k1_us / 1e3:.3f} ms of device time in {k1_n} "
+          f"launches, device busy {busy / 1e3:.3f} ms, {len(kern)} device kernels"
+          if kern else "walk mpc: the profiler recorded no device time (not measured)")
     print(f"walk phase: {time.perf_counter() - t_phase:.1f} s")
     return {"riccati_backward_walk": k1, "riccati_forward_walk": k2}, res.traj_cost
 
@@ -2599,7 +2752,9 @@ def main() -> int:
           f"stores, {ld} B of spill loads")
 
     t_run = time.perf_counter()
-    kernels = kernels_phase(dev) + k1_walk_check(dev) + probe_phase(dev)
+    kernels = kernels_phase(dev) + k1_walk_check(dev)
+    k1_cluster_check(dev)
+    kernels += probe_phase(dev)
     print(f"kernel and probe phases: {time.perf_counter() - t_run:.1f} s")
     t0 = time.perf_counter()
     launches = slice_phase(dev)
@@ -2637,6 +2792,7 @@ def main() -> int:
     print(f"all phases: {time.perf_counter() - t_run:.1f} s")
     for k in kernels:
         k["launches"] = launches[k["name"]]
+        k.setdefault("cluster", 1)  # blocks per problem of the row's timed launch
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

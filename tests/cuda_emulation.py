@@ -10,8 +10,16 @@ a warp whose lanes diverge at a shuffle hangs), cp.async copies held back
 until ``cp.async.wait_all`` (so a buffer read before its wait holds stale
 data) and refused when misaligned; the CUDA runtime calls of the host side
 are stubs, and a launch ``k<<<grid, block, smem, stream>>>(args)`` runs the
-blocks one after another. The ``asm`` statements of cp.async and the
-``extern __shared__`` array are replaced by text substitution (an empty
+blocks one after another. A thread-block cluster (``cudaLaunchKernelEx``
+with ``cudaLaunchAttributeClusterDimension``) runs the threads of all its
+blocks at once, clusters one after another: ``cooperative_groups``'
+``cluster_group`` gives ``sync()``, ``barrier_arrive()`` and
+``barrier_wait()`` (one std::barrier across the cluster's threads),
+``block_rank()``, ``num_blocks()`` and ``map_shared_rank`` (the same offset
+in another block's dynamic shared memory; a pointer outside it counts as a
+fault); ``cudaOccupancyMaxActiveClusters`` says 1. The ``asm`` statements of
+cp.async and the ``extern __shared__`` array are replaced by text
+substitution (an empty
 ``asm volatile("" : "+r"(x))`` stays: g++ takes it as it is). Arithmetic
 is the CPU's: ``__fdividef`` divides exactly, ``fmaf`` is the C library's.
 """
@@ -34,6 +42,7 @@ EMU_H = r"""
 #include <cstdio>
 #include <cstring>
 #include <memory>
+#include <optional>
 #include <stdexcept>
 #include <thread>
 #include <vector>
@@ -47,35 +56,98 @@ EMU_H = r"""
 #define __restrict__ __restrict
 
 struct uint3 { unsigned x, y, z; };
+struct dim3 {
+  unsigned x, y, z;
+  dim3(unsigned x_ = 1, unsigned y_ = 1, unsigned z_ = 1) : x(x_), y(y_), z(z_) {}
+};
 struct float4 { float x, y, z, w; };
 struct float2 { float x, y; };
 inline float4 make_float4(float a, float b, float c, float d) { return {a, b, c, d}; }
 typedef void* cudaStream_t;
 enum cudaError_t { cudaSuccess = 0, cudaErrorInvalidValue = 1, cudaErrorInvalidDevice = 101 };
 enum cudaFuncAttribute { cudaFuncAttributeMaxDynamicSharedMemorySize = 8 };
+enum cudaLaunchAttributeID { cudaLaunchAttributeClusterDimension = 4 };
+struct cudaLaunchAttribute {
+  cudaLaunchAttributeID id;
+  union {
+    struct { unsigned x, y, z; } clusterDim;
+  } val;
+};
+struct cudaLaunchConfig_t {
+  dim3 gridDim, blockDim;
+  size_t dynamicSmemBytes;
+  cudaStream_t stream;
+  cudaLaunchAttribute* attrs;
+  unsigned numAttrs;
+};
 inline cudaError_t cudaGetDevice(int* d) { *d = 0; return cudaSuccess; }
 inline cudaError_t cudaFuncSetAttribute(const void*, cudaFuncAttribute, int) { return cudaSuccess; }
 inline cudaError_t cudaOccupancyMaxActiveBlocksPerMultiprocessor(int* b, const void*, int, size_t) {
   *b = 1;
   return cudaSuccess;
 }
+template <class K>
+inline cudaError_t cudaOccupancyMaxActiveClusters(int* n, K, const cudaLaunchConfig_t*) {
+  *n = 1;
+  return cudaSuccess;
+}
 inline cudaError_t cudaGetLastError() { return cudaSuccess; }
 
 namespace emu {
+struct Cluster;
 struct Block {
   std::barrier<> all;
   std::vector<std::unique_ptr<std::barrier<>>> warp;
   std::vector<float> slots;
   std::vector<float4> smem;
+  Cluster* cluster = nullptr;
+  int rank = 0;
   Block(int nt, size_t smem_bytes) : all(nt), slots(nt), smem(smem_bytes / 16 + 1) {
     for (int w = 0; w < (nt + 31) / 32; ++w)
       warp.emplace_back(new std::barrier<>(std::min(32, nt - 32 * w)));
   }
 };
+struct Cluster {
+  std::barrier<> all;
+  std::vector<Block*> blocks;
+  explicit Cluster(int threads) : all(threads) {}
+};
 struct Copy { void* dst; const void* src; int bytes; };
 inline thread_local Block* blk = nullptr;
 inline thread_local std::vector<Copy> pending;
+inline thread_local std::optional<std::barrier<>::arrival_token> arrival;
+inline std::atomic<int> faults{0};
 }  // namespace emu
+
+namespace cooperative_groups {
+struct cluster_group {
+  struct arrival_token {};
+  static void sync() { emu::blk->cluster->all.arrive_and_wait(); }
+  static arrival_token barrier_arrive() {
+    emu::arrival.emplace(emu::blk->cluster->all.arrive());
+    return {};
+  }
+  static void barrier_wait(arrival_token&& = {}) {
+    emu::blk->cluster->all.wait(std::move(*emu::arrival));
+    emu::arrival.reset();
+  }
+  static unsigned block_rank() { return (unsigned)emu::blk->rank; }
+  static unsigned num_blocks() { return (unsigned)emu::blk->cluster->blocks.size(); }
+  template <class T>
+  static T* map_shared_rank(T* p, int r) {
+    char* base = reinterpret_cast<char*>(emu::blk->smem.data());
+    const std::ptrdiff_t off = reinterpret_cast<char*>(p) - base;
+    const std::ptrdiff_t size = (std::ptrdiff_t)(emu::blk->smem.size() * sizeof(float4));
+    if (off < 0 || off >= size || r < 0 || r >= (int)emu::blk->cluster->blocks.size()) {
+      ++emu::faults;
+      return p;
+    }
+    return reinterpret_cast<T*>(
+        reinterpret_cast<char*>(emu::blk->cluster->blocks[r]->smem.data()) + off);
+  }
+};
+inline cluster_group this_cluster() { return {}; }
+}  // namespace cooperative_groups
 
 inline thread_local uint3 threadIdx, blockIdx, blockDim;
 
@@ -99,7 +171,6 @@ inline unsigned __umulhi(unsigned a, unsigned b) {
 }
 
 namespace emu {
-inline std::atomic<int> faults{0};
 inline void cp_async(void* dst, const void* src, int bytes) {
   if (reinterpret_cast<uintptr_t>(src) % bytes || reinterpret_cast<uintptr_t>(dst) % bytes)
     ++faults;
@@ -110,25 +181,52 @@ inline void wait_all() {
   for (auto& c : pending) std::memcpy(c.dst, c.src, c.bytes);
   pending.clear();
 }
+// Runs the grid as clusters of `cs` blocks, one cluster after another, the
+// threads of a cluster's blocks all at once.
 template <class F>
-void launch(int grid, int nt, size_t smem, F&& f) {
-  for (int b = 0; b < grid; ++b) {
-    Block block(nt, smem);
+void launch_clusters(int grid, int nt, size_t smem, int cs, F&& f) {
+  for (int c0 = 0; c0 < grid; c0 += cs) {
+    const int n = std::min(cs, grid - c0);
+    Cluster cluster(n * nt);
+    std::vector<std::unique_ptr<Block>> blocks;
+    for (int r = 0; r < n; ++r) {
+      blocks.emplace_back(new Block(nt, smem));
+      blocks.back()->cluster = &cluster;
+      blocks.back()->rank = r;
+      cluster.blocks.push_back(blocks.back().get());
+    }
     std::vector<std::thread> ts;
-    for (int t = 0; t < nt; ++t)
-      ts.emplace_back([&, b, t] {
-        threadIdx = {(unsigned)t, 0, 0};
-        blockIdx = {(unsigned)b, 0, 0};
-        blockDim = {(unsigned)nt, 1, 1};
-        blk = &block;
-        pending.clear();
-        f();
-        if (!pending.empty()) ++faults;  // copies never waited for
-      });
+    for (int r = 0; r < n; ++r)
+      for (int t = 0; t < nt; ++t)
+        ts.emplace_back([&, r, t] {
+          threadIdx = {(unsigned)t, 0, 0};
+          blockIdx = {(unsigned)(c0 + r), 0, 0};
+          blockDim = {(unsigned)nt, 1, 1};
+          blk = blocks[r].get();
+          pending.clear();
+          f();
+          if (!pending.empty()) ++faults;  // copies never waited for
+        });
     for (auto& t : ts) t.join();
   }
 }
+template <class F>
+void launch(int grid, int nt, size_t smem, F&& f) {
+  launch_clusters(grid, nt, smem, 1, f);
+}
 }  // namespace emu
+
+template <class... P, class... A>
+cudaError_t cudaLaunchKernelEx(const cudaLaunchConfig_t* cfg, void (*kernel)(P...), A&&... args) {
+  int cs = 1;
+  for (unsigned i = 0; i < cfg->numAttrs; ++i)
+    if (cfg->attrs[i].id == cudaLaunchAttributeClusterDimension)
+      cs = (int)cfg->attrs[i].val.clusterDim.x;
+  if (cs < 1 || cfg->gridDim.x % cs) return cudaErrorInvalidValue;
+  emu::launch_clusters((int)cfg->gridDim.x, (int)cfg->blockDim.x, cfg->dynamicSmemBytes, cs,
+                       [&]() { kernel(args...); });
+  return cudaSuccess;
+}
 
 extern "C" int emu_faults() { return emu::faults.load(); }
 """
@@ -137,6 +235,7 @@ extern "C" int emu_faults() { return emu::faults.load(); }
 def translate(src: str) -> str:
     """The CUDA source as C++ for g++ against ``emu.h``."""
     src = src.replace("#include <cuda_runtime.h>", '#include "emu.h"')
+    src = src.replace("#include <cooperative_groups.h>\n", "")
     src = re.sub(r"const unsigned s = static_cast<unsigned>\(__cvta_generic_to_shared\(dst\)\);"
                  r"\s*asm volatile\(\"cp\.async\.ca\.shared\.global.*?: \"memory\"\);",
                  "emu::cp_async(dst, src, BYTES);", src, flags=re.S)

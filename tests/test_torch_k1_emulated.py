@@ -4,9 +4,13 @@ run on the CPU: compiled by g++ against an emulation of the CUDA built-ins
 (``fused_riccati.backward_sweep_batched_ref``) at the widths of each
 instantiation, the compiled bench and walk widths and small-width classes
 from one warp to 256 threads, with the terminal knot's A, B, f NaN (the
-kernel must never read them); and its C entry ``riccati_backward_variant``
-held to ``fused_riccati.backward_plan`` at every width. The card runs the
-same checks in chip_smoke.py; here they catch an indexing or barrier fault
+kernel must never read them); the compiled widths' cluster variant at
+2, 4 and 8 blocks per problem (the emulation runs a cluster's blocks at
+once), against the plain version, against the kernel without a cluster
+(1e-5 relative) and against itself at another batch (bitwise); and its C
+entries ``riccati_backward_variant`` and ``riccati_backward_cluster`` held
+to ``fused_riccati.backward_plan`` at every width. The card runs the same
+checks in chip_smoke.py; here they catch an indexing or barrier fault
 without one. Skipped where there is no g++.
 
 Each output is gated at the larger of test_gar_pallas.py's float32
@@ -37,10 +41,12 @@ def lib(tmp_path_factory):
         pytest.skip("no g++ to compile the emulated kernel")
     so = E.build(cuda_build.CSRC / "riccati_backward.cu", tmp_path_factory.mktemp("k1emu"))
     lib = ctypes.CDLL(str(so))
-    lib.riccati_backward_f32.argtypes = [_P] * 20 + [_I] * 6 + [_P]
+    lib.riccati_backward_f32.argtypes = [_P] * 20 + [_I] * 7 + [_P]
     lib.riccati_backward_f32.restype = _I
     lib.riccati_backward_variant.argtypes = [_I] * 3
     lib.riccati_backward_variant.restype = _I
+    lib.riccati_backward_cluster.argtypes = [_I] * 5
+    lib.riccati_backward_cluster.restype = _I
     return lib
 
 
@@ -75,7 +81,7 @@ def _random_lq(B, N, nx, nu, nc, seed):
     return knots_of(lqr_from_numpy(arrays, device="cpu", dtype=torch.float32))
 
 
-def _run(lib, knots, mu, refine_steps):
+def _run(lib, knots, mu, refine_steps, cluster=0):
     Bsz, L = knots.Q.shape[:2]
     nx, nu, nc = knots.Q.shape[-1], knots.R.shape[-1], knots.C.shape[-2]
     dims = dict(nx=nx, nu=nu, nc=nc)
@@ -85,9 +91,21 @@ def _run(lib, knots, mu, refine_steps):
     order = ("K", "Z", "kff", "zff", "yff", "Acl", "Vxx", "vx")
     err = lib.riccati_backward_f32(*(a.data_ptr() for a in named), mu.data_ptr(),
                                    *(outs[n].data_ptr() for n in order), Bsz, L, nx, nu, nc,
-                                   refine_steps, None)
+                                   refine_steps, cluster, None)
     assert err == 0
     return outs
+
+
+def _check_against_plain(out, knots, mus, refine):
+    gp, vp = FR.backward_sweep_batched_ref(knots, mus, refine)
+    for name, atol in (("kff", 2e-4), ("zff", 2e-4), ("yff", 2e-4), ("K", 2e-4), ("Z", 2e-4),
+                       ("Acl", 2e-4), ("Vxx", 1e-3), ("vx", 1e-3)):
+        ref = getattr(gp, name) if hasattr(gp, name) else getattr(vp, name)
+        if not ref.numel():
+            continue
+        assert bool(torch.isfinite(out[name]).all()), name
+        gate = max(atol, 1e-4 * max(float(ref.abs().max()), 1.0))
+        assert float((out[name] - ref).abs().max()) <= gate, name
 
 
 @pytest.mark.parametrize("B, N, nx, nu, nc, mu, refine, plan", [
@@ -115,15 +133,78 @@ def test_emulated_kernel_matches_its_plain_version(lib, B, N, nx, nu, nc, mu, re
     faults = lib.emu_faults()
     out = _run(lib, knots, mus, refine)
     assert lib.emu_faults() == faults, "a cp.async was misaligned or never waited for"
-    gp, vp = FR.backward_sweep_batched_ref(knots, mus, refine)
-    for name, atol in (("kff", 2e-4), ("zff", 2e-4), ("yff", 2e-4), ("K", 2e-4), ("Z", 2e-4),
-                       ("Acl", 2e-4), ("Vxx", 1e-3), ("vx", 1e-3)):
-        ref = getattr(gp, name) if hasattr(gp, name) else getattr(vp, name)
-        if not ref.numel():
-            continue
-        assert bool(torch.isfinite(out[name]).all()), name
-        gate = max(atol, 1e-4 * max(float(ref.abs().max()), 1.0))
-        assert float((out[name] - ref).abs().max()) <= gate, name
+    _check_against_plain(out, knots, mus, refine)
+
+
+@pytest.fixture(scope="module")
+def one_block(lib):
+    """The compiled widths without a cluster and with a cluster of 2 on the
+    cluster cases' inputs (B = 2, N = 3): {widths: (knots, µ, outputs at
+    C = 1, at C = 2)}."""
+    runs = {}
+    for nx, nu, nc, mu in ((56, 22, 22, 1e-2), (56, 22, 0, 1e-8)):
+        knots = _random_lq(2, 3, nx, nu, nc, seed=7 + nc)
+        mus = torch.full((2,), mu)
+        runs[(nx, nu, nc)] = (knots, mus, _run(lib, knots, mus, 1, cluster=1),
+                              _run(lib, knots, mus, 1, cluster=2))
+    return runs
+
+
+def _same_bits(a, b):
+    return torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("cluster", [2, 4, 8])
+@pytest.mark.parametrize("widths", [(56, 22, 22), (56, 22, 0)], ids=["bench", "walk"])
+def test_emulated_cluster_matches_plain_one_block_and_itself(lib, one_block, widths, cluster):
+    """A cluster of 2, 4 or 8 blocks per problem at the compiled widths (B =
+    2, N = 3, the terminal A, B, f NaN): the plain version's gates, within
+    1e-5·max|·| of the kernel without a cluster, the same bits as a cluster
+    of 2 (each entry is formed alike at every size), and the first problem
+    the same bits when it runs alone (B = 1)."""
+    knots, mus, base, two = one_block[widths]
+    faults = lib.emu_faults()
+    out = two if cluster == 2 else _run(lib, knots, mus, 1, cluster=cluster)
+    first = _run(lib, type(knots)(*(a[:1].contiguous() for a in knots)), mus[:1], 1, cluster)
+    assert lib.emu_faults() == faults, "a copy or a load from another block went astray"
+    _check_against_plain(out, knots, mus, 1)
+    for name, a in out.items():
+        if a.numel():
+            scale = max(float(base[name].abs().max()), 1.0)
+            assert float((a - base[name]).abs().max()) <= 1e-5 * scale, name
+        assert _same_bits(a, two[name]), name
+        assert _same_bits(first[name], a[:1]), name
+
+
+def test_emulated_cluster_launch_refusals(lib):
+    """Cluster sizes the kernel does not take: 3, 16, and any above 1 at a
+    small width; the plan's own size (0) at a small width is 1."""
+    knots = _random_lq(1, 2, 12, 4, 6, seed=3)
+    mus = torch.full((1,), 1e-2)
+    for widths, cluster in (((56, 22, 0), 3), ((56, 22, 22), 16), ((12, 4, 6), 2)):
+        k = knots if widths == (12, 4, 6) else _random_lq(1, 2, *widths, seed=3)
+        with pytest.raises(AssertionError):
+            _run(lib, k, mus, 1, cluster=cluster)
+    _check_against_plain(_run(lib, knots, mus, 1, cluster=0), knots, mus, 1)
+
+
+def test_c_entry_cluster_agrees_with_backward_plan(lib):
+    """riccati_backward_cluster and backward_plan(...).cluster give the same
+    blocks per problem at the compiled widths for every batch up to 1024 on
+    cards of 132 (an H100's), 114 and 8 SMs, and 1 at every other width
+    at B = 1, 16, 64 and 256."""
+    for sms in (132, 114, 8):
+        for widths in ((56, 22, 22), (56, 22, 0), (12, 4, 6)):
+            for B in range(1, 1025):
+                want = FR.backward_plan(*widths, batch=B, sms=sms).cluster
+                assert lib.riccati_backward_cluster(*widths, B, sms) == want, (widths, B, sms)
+    for nx in range(0, 85, 3):
+        for nu in range(1, 33, 3):
+            for nc in range(0, 33, 4):
+                for B in (1, 16, 64, 256):
+                    want = FR.backward_plan(nx, nu, nc, batch=B, sms=132).cluster
+                    got = lib.riccati_backward_cluster(nx, nu, nc, B, 132)
+                    assert got == want, (nx, nu, nc, B)
 
 
 def test_c_entry_agrees_with_backward_plan(lib):

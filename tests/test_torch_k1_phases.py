@@ -1,8 +1,10 @@
 """The K1 phase probe (``aligator_tpu_torch.probes.k1_phases``) on the CPU:
-its instrumentation of the kernel source (both kernels' time loops, their
-``__syncthreads`` and ``bar_sync`` barriers, an earlier source with one
-loop), its options and its refusal to run without a card. The
-instrumented kernel itself builds and runs only on the card."""
+its instrumentation of the kernel source (the three kernels' time loops,
+their ``__syncthreads`` and ``bar_sync`` barriers and the cluster
+barrier's wait, an earlier source with one loop), its options and its
+refusal to run without a card, and the same refusal of the cluster-barrier
+probe. The instrumented kernels themselves build and run only on the
+card."""
 
 import re
 
@@ -25,7 +27,7 @@ def _loop_bodies(src):
 
 def test_every_barrier_of_the_time_loop_gets_a_stamp():
     bodies = _loop_bodies(_SRC)
-    assert len(bodies) == 2  # the compiled widths' kernel and the small-width kernel
+    assert len(bodies) == 3  # the compiled widths' kernel, the small widths', the cluster variant
     barriers = [len(K.BARRIER.findall(b)) for b in bodies]
     out, loops = K.instrument(_SRC)
     assert [len(lines) for lines in loops] == [n + 1 for n in barriers]
@@ -84,6 +86,27 @@ def test_main_without_a_card_exits_non_zero():
         return
     assert K.main([]) == 1
     assert K.main(["--widths", "36", "12", "0", "--steps", "45", "--batch", "16", "256"]) == 1
+
+
+def test_the_cluster_variants_barriers_get_stamps():
+    """The cluster variant's loop (the third) stamps its block barriers and
+    the waits of its cluster barriers, and `--cluster` takes sizes."""
+    cluster_loop = _loop_bodies(_SRC)[2]
+    waits = cluster_loop.count("cg::cluster_group::barrier_wait();")
+    assert waits == 2  # V before the knot, rhs before [Vxx | vx]
+    _, loops = K.instrument(_SRC)
+    assert len(loops[2]) == len(K.BARRIER.findall(cluster_loop)) + 1
+    assert len(K.BARRIER.findall(cluster_loop)) == cluster_loop.count("__syncthreads();") + waits
+    if not torch.cuda.is_available():
+        assert K.main(["--cluster", "1", "4", "--batch", "1"]) == 1
+
+
+def test_cluster_barrier_probe_without_a_card_exits_non_zero():
+    from aligator_tpu_torch.probes import cluster_barrier as CB
+
+    assert len(CB.MODES) == 12 and "cudaLaunchAttributeClusterDimension" in CB.SOURCE
+    if not torch.cuda.is_available():
+        assert CB.main(["--clusters", "2"]) == 1
 
 
 def test_widths_take_three_numbers():
