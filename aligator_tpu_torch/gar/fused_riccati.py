@@ -7,11 +7,13 @@ Two hand-written CUDA kernels for Hopper (``sm_90a``) carry this module:
   thread block per problem, or at the compiled widths and small batches one
   thread-block cluster of 2, 4 or 8 blocks per problem, the cost-to-go kept
   in shared memory between steps (replaces the Pallas ``_backward_kernel``);
-* ``csrc/riccati_forward.cu`` — the closed-loop rollout in two kernels
-  (replaces ``_forward_kernel``): the state chain x⁺ = yff + Acl x, one
-  block per problem, the next knots' Acl and yff copied ahead by cp.async
-  into a ring in shared memory; then u, v and λ of every knot from the
-  stored states, over a grid of (knot chunk, problem).
+* ``csrc/riccati_forward.cu`` — the closed-loop rollout (replaces
+  ``_forward_kernel``): one launch a sweep and one block a problem, the
+  state chain x⁺ = yff + Acl x on the fewest warps that hold its rows, the
+  knots' gains copied ahead into a ring in shared memory and u, v and λ
+  computed by the other warps a few knots behind (``forward_plan``'s small
+  kernel); at nx = 56 a pair of kernels (the chain, then the rows over a
+  grid of (knot chunk, problem)).
 
 The public API matches the JAX module: ``backward_sweep_batched``,
 ``forward_sweep_batched``, ``backward``, ``forward`` and ``solve``. An
@@ -399,53 +401,98 @@ def forward_sweep_batched_ref(gains: Gains, vms: CostToGo, x0: torch.Tensor,
     return _riccati.forward_sweep(gains, vms, x0, lbd0, x0.new_zeros((x0.shape[0], 0)))
 
 
-# The forward kernels' instantiations: nx = 56 compiled in, or nx read at
-# launch up to FORWARD_MAX_NX (a ring of four knots of Acl in shared memory).
+# The forward kernel's plan (csrc/riccati_forward.cu): the small kernel, one
+# launch a sweep and one block a problem, in the least class of
+# FORWARD_CLASSES that holds nx, or at nx = 56 the pair of kernels (the
+# chain, then the rows), which chip_smoke.py's `k2 small:` lines measured
+# faster there than the small kernel at every batch from 1 to 256 (PERF.md
+# §6).
 FORWARD_BENCH_NX = 56
 FORWARD_MAX_NX = 112
+FORWARD_CLASSES = (16, 32, 64, 112)
 
 
-def forward_variant(nx: int, ptrs) -> tuple:
-    """Which instantiation of the forward kernels serves state width ``nx``,
-    and the width of their copies in floats: ``("bench", w)`` for nx = 56
-    (compiled in; nu and nc only count rows and are read at launch) or
-    ``("runtime", w)`` for any other nx up to 112. ``w`` is 4 (16-byte
-    copies) where nx % 4 == 0 and every address in ``ptrs`` (those of the
-    inputs the kernels copy by rows: K, Z, Acl, Vxx, yff) is 16-byte
-    aligned, else 2 (8 bytes) or 1."""
+class ForwardPlan(NamedTuple):
+    """A kernel of the forward sweep: ``"pair"`` (a chain kernel, then a
+    rows kernel, at nx = 56) or ``"small"`` (``riccati_forward_small<nxc>``)."""
+
+    kernel: str
+    nxc: int = 0
+
+    @property
+    def code(self) -> int:
+        """What the C entry ``riccati_forward_plan`` returns for it."""
+        return 1 if self.kernel == "pair" else self.nxc
+
+    def __str__(self) -> str:
+        return "pair" if self.kernel == "pair" else f"small<{self.nxc}>"
+
+
+def forward_plan(nx: int, batch: int = 1) -> ForwardPlan:
+    """Which kernel serves a forward sweep at state width ``nx`` for
+    ``batch`` problems (nu and nc only count rows): the pair at nx = 56,
+    else the small kernel's least class that holds nx; the batch changes
+    neither. Raises ``ValueError`` outside 1 <= nx <= 112. The C entry
+    ``riccati_forward_plan`` answers ``.code``."""
     if not 1 <= nx <= FORWARD_MAX_NX:
         raise ValueError(f"nx={nx}: the forward kernels take 1 <= nx <= {FORWARD_MAX_NX}")
-    vec = next(w for w in (4, 2, 1)
-               if nx % w == 0 and all(p % (4 * w) == 0 for p in ptrs))
-    return ("bench" if nx == FORWARD_BENCH_NX else "runtime"), vec
+    if nx == FORWARD_BENCH_NX:
+        return ForwardPlan("pair")
+    return ForwardPlan("small", next(c for c in FORWARD_CLASSES if c >= nx))
 
 
-def forward_plan(gains: Gains, vms: CostToGo) -> tuple:
-    """``forward_variant`` of these inputs (the outputs are fresh
-    allocations, aligned for any width; the kernels' entry points check
-    them too)."""
+def forward_copy(nx: int, ptrs) -> int:
+    """The copy method of the forward kernels, in floats: 4 (16 bytes; the
+    small kernel's 1-D bulk copies) where nx % 4 == 0 and every address in
+    ``ptrs`` (those of the inputs copied by rows: K, Z, Acl, Vxx, yff) is
+    16-byte aligned, else 2 (cp.async of 8 bytes) or 1 (4 bytes)."""
+    return next(w for w in (4, 2, 1) if nx % w == 0 and all(p % (4 * w) == 0 for p in ptrs))
+
+
+def forward_variant(nx: int, ptrs, batch: int = 1) -> tuple:
+    """``(str(forward_plan(nx, batch)), forward_copy(nx, ptrs))``."""
+    return str(forward_plan(nx, batch)), forward_copy(nx, ptrs)
+
+
+def _rowwise_ptrs(gains: Gains, vms: CostToGo) -> list:
     rowwise = (gains.K, gains.Z, gains.Acl, vms.Vxx, gains.yff)
-    return forward_variant(gains.K.shape[-1], [a.data_ptr() for a in rowwise if a.numel()])
+    return [a.data_ptr() for a in rowwise if a.numel()]
 
 
-def forward_chain_occupancy(nx: int) -> tuple:
-    """(blocks per SM, bytes of shared memory per block) of the forward
-    chain kernel at state width ``nx`` on the current card."""
-    variant = int(forward_variant(nx, ())[0] == "bench")
+def forward_choice(gains: Gains, vms: CostToGo) -> tuple:
+    """``forward_variant`` of these inputs (the outputs are fresh
+    allocations, aligned for any width; the entry points check them too)."""
+    Bsz, _, _, nx = gains.K.shape
+    return forward_variant(nx, _rowwise_ptrs(gains, vms), Bsz)
+
+
+def forward_occupancy(nx: int, nu: int, nc: int, L: int, batch: int) -> dict:
+    """The plan's kernel at these dims on the current card: blocks per SM,
+    bytes of shared memory per block and (the small kernel) its ring: the
+    chunks, the knots a chunk, and whether K, Z and Vxx go through it."""
     lib = cuda_build.load("riccati_forward")
-    n = lib.riccati_forward_chain_blocks_per_sm(nx, variant)
+    n = lib.riccati_forward_blocks_per_sm(nx, nu, nc, L, batch)
     if n < 0:
         raise RuntimeError(f"riccati_forward occupancy query failed: cudaError {-n}")
-    return n, lib.riccati_forward_chain_smem_bytes(nx, variant)
+    ring = lib.riccati_forward_small_stages(nx, nu, nc, L, batch)
+    return dict(blocks_per_sm=n, smem=lib.riccati_forward_smem_bytes(nx, nu, nc, L, batch),
+                chunks=abs(ring) // 100, chunk=abs(ring) % 100, staged=ring > 0)
 
 
-def forward_halves(gains: Gains, vms: CostToGo, x0: torch.Tensor, lbd0: torch.Tensor):
-    """The two kernel launches of one forward sweep of CUDA tensors.
+def forward_parts(gains: Gains, vms: CostToGo, x0: torch.Tensor, lbd0: torch.Tensor,
+                  plan: ForwardPlan | None = None, bulk: bool = True):
+    """The launches of one forward sweep of CUDA tensors.
 
-    Checks the arguments and allocates the outputs; returns
-    ``(outs, (chain, rows))``: outs = (xs, us, vs, lbds), and two callables
-    that launch, on the current stream, the chain (xs) and then the rows
-    (us, vs, lbds from xs). Each raises if its launch is refused."""
+    Checks the arguments and allocates the outputs; returns ``(outs, plan,
+    parts)``: outs = (xs, us, vs, lbds), the plan (``forward_plan``'s unless
+    one is given) and a dict of callables that launch on the current
+    stream: for the pair ``"chain"`` (xs) and ``"rows"`` (us, vs, lbds from
+    xs), run in that order; for the small kernel ``"sweep"`` (all four) and
+    ``"chain"`` (the same launch with u, v and λ left unwritten, to time the
+    chain alone). Where its copies may be 16 bytes, the small kernel's
+    producer issues 1-D bulk copies, measured 1.5–2.5× faster than cp.async
+    copies of 16 bytes by its 32 lanes (PERF.md §6); ``bulk=False``
+    takes the latter, to time them. Each raises if its launch is refused."""
     Bsz, L, nu, nx = gains.K.shape
     nc = gains.Z.shape[-2]
     dev = x0.device
@@ -455,51 +502,73 @@ def forward_halves(gains: Gains, vms: CostToGo, x0: torch.Tensor, lbd0: torch.Te
     _check_kernel_args(named, Bsz, L, dims, _GAIN_SHAPES, dev)
     _vec_check("x0", x0, (Bsz, nx), dev)
     _vec_check("lbd0", lbd0, (Bsz, nx), dev)
+    plan = plan or forward_plan(nx, Bsz)
+    if plan.kernel == "pair" and nx != FORWARD_BENCH_NX:
+        raise ValueError(f"nx={nx}: the pair of forward kernels takes nx = 56 only")
+    vec = forward_copy(nx, _rowwise_ptrs(gains, vms))
     xs, us, vs, lbds = outs = tuple(
         torch.empty((Bsz, L, n), dtype=torch.float32, device=dev) for n in (nx, nu, nc, nx))
-    name, vec = forward_plan(gains, vms)
-    variant = int(name == "bench")
     lib = cuda_build.load("riccati_forward")
     p = lambda *ts: tuple(t.data_ptr() for t in ts)
 
-    def launch(half, fn, *args):
+    def launch(part, fn, *args):
         with torch.cuda.device(dev):  # launch on the tensors' card
-            err = fn(*args, variant, vec, torch.cuda.current_stream(dev).cuda_stream)
+            err = fn(*args, torch.cuda.current_stream(dev).cuda_stream)
         if err != 0:
-            raise RuntimeError(f"riccati_forward {half} kernel launch failed: cudaError {err}")
+            raise RuntimeError(f"riccati_forward {part} launch ({plan}) failed: cudaError {err}")
 
-    chain = lambda: launch(
-        "chain", lib.riccati_forward_chain_f32,
-        *p(named["Acl"], named["yff"], x0, xs), Bsz, L, nx)
-    rows = lambda: launch(
-        "rows", lib.riccati_forward_rows_f32,
-        *p(named["K"], named["Z"], named["Vxx"], named["kff"], named["zff"], named["vx"],
-           lbd0, xs, us, vs, lbds), Bsz, L, nx, nu, nc)
-    return outs, (chain, rows)
+    if plan.kernel == "pair":
+        parts = dict(
+            chain=lambda: launch("chain", lib.riccati_forward_chain_f32,
+                                 *p(named["Acl"], named["yff"], x0, xs), Bsz, L, nx, vec),
+            rows=lambda: launch("rows", lib.riccati_forward_rows_f32,
+                                *p(named["K"], named["Z"], named["Vxx"], named["kff"],
+                                   named["zff"], named["vx"], lbd0, xs, us, vs, lbds),
+                                Bsz, L, nx, nu, nc, vec))
+    else:
+        copy = 0 if bulk and vec == 4 else vec
+        # the pointers are taken at each launch: the closures keep the tensors alive
+        small = lambda part, rows: launch(
+            part, lib.riccati_forward_small_f32,
+            *p(named["Acl"], named["yff"], x0, named["K"], named["Z"], named["Vxx"],
+               named["kff"], named["zff"], named["vx"], lbd0, xs, us, vs, lbds),
+            Bsz, L, nx, nu, nc, plan.code, copy, rows)
+        parts = dict(sweep=lambda: small("sweep", 1), chain=lambda: small("chain", 0))
+    return outs, plan, parts
 
 
 @named_scope("gar.fused.forward")
 def forward_sweep_batched(gains: Gains, vms: CostToGo, x0: torch.Tensor,
-                          lbd0: torch.Tensor):
+                          lbd0: torch.Tensor, plan: ForwardPlan | None = None):
     """Fused closed-loop forward rollout.
 
     gains/vms: leading axes (B, N+1); x0, lbd0: (B, nx) (λ0 already
     zero-padded to nx). Returns (xs, us, vs, lbds), each (B, N+1, ·).
-    CPU tensors go through the plain version; CUDA tensors launch the two
-    kernels of ``csrc/riccati_forward.cu``, and ``launches`` counts sweeps.
+    CPU tensors go through the plain version; CUDA tensors launch
+    ``csrc/riccati_forward.cu``: ``forward_plan``'s kernel, or ``plan``.
+    ``launches`` counts sweeps, ``by_kernel`` the sweeps of each kernel by
+    name, and ``last_plan`` is the latest sweep's.
     """
     if x0.device.type == "cpu":
         return forward_sweep_batched_ref(gains, vms, x0, lbd0)
     if x0.device.type != "cuda":
         raise ValueError(f"unsupported device {x0.device}")
-    outs, halves = forward_halves(gains, vms, x0, lbd0)
-    for launch in halves:
-        launch()
+    outs, plan, parts = forward_parts(gains, vms, x0, lbd0, plan)
+    if plan.kernel == "pair":
+        parts["chain"]()
+        parts["rows"]()
+    else:
+        parts["sweep"]()
     forward_sweep_batched.launches += 1
+    forward_sweep_batched.last_plan = plan
+    by = forward_sweep_batched.by_kernel
+    by[str(plan)] = by.get(str(plan), 0) + 1
     return outs
 
 
 forward_sweep_batched.launches = 0
+forward_sweep_batched.last_plan = None
+forward_sweep_batched.by_kernel = {}
 
 
 # ---------------------------------------------------------------------------

@@ -33,10 +33,13 @@ SIGNATURES = {
         "riccati_backward_f32": ([_P] * 20 + [_I] * 7 + [_P], _I),
     },
     "riccati_forward": {
-        "riccati_forward_chain_smem_bytes": ([_I] * 2, ctypes.c_longlong),
-        "riccati_forward_chain_blocks_per_sm": ([_I] * 2, _I),
-        "riccati_forward_chain_f32": ([_P] * 4 + [_I] * 5 + [_P], _I),
-        "riccati_forward_rows_f32": ([_P] * 11 + [_I] * 7 + [_P], _I),
+        "riccati_forward_plan": ([_I] * 2, _I),
+        "riccati_forward_small_stages": ([_I] * 5, _I),
+        "riccati_forward_smem_bytes": ([_I] * 5, ctypes.c_longlong),
+        "riccati_forward_blocks_per_sm": ([_I] * 5, _I),
+        "riccati_forward_small_f32": ([_P] * 14 + [_I] * 8 + [_P], _I),
+        "riccati_forward_chain_f32": ([_P] * 4 + [_I] * 4 + [_P], _I),
+        "riccati_forward_rows_f32": ([_P] * 11 + [_I] * 6 + [_P], _I),
     },
     "layout_probe": {
         "probe_batched_mm_f32": ([_P] * 3 + [_I] * 5 + [_P], _I),

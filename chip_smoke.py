@@ -7,10 +7,11 @@ Run from the root of the repository on a machine with one CUDA card:
 It builds the hand-written kernels from ``aligator_tpu_torch/csrc`` (nvcc,
 sm_90a, into ``build/kernels``), holds each kernel against its plain
 torch version on the card (every instantiation of K1 and K2, K2 at each
-copy width; K1's twelve small-width classes on both sides of each class
-boundary, and its class choice in Python against the C entry at every
-width), times K1 and K2 at B = 256 and 64 and K2's two halves
-beside their bounds, runs the layout probe (the port of
+copy width; K1's twelve small-width classes and K2's four on both sides
+of each class boundary, and K1's class choice in Python against the C
+entry at every width), times K1 and K2 at B = 256 and 64 and K2's parts
+beside their bounds, K2 at the solver paths' widths and at nx = 56 for
+B = 1 to 256 by both its kernels, runs the layout probe (the port of
 ``scripts/probe_mosaic.py``: each probe body against its plain version,
 then timed per construct beside its library call), drives the main path
 — the batched ProxDDP solve of the lqr56 box-constrained LQR (B = 256,
@@ -105,6 +106,7 @@ from aligator_tpu_torch.multibody.model import (
 )
 from aligator_tpu_torch.multibody.urdf import model_to_urdf
 from aligator_tpu_torch.problem import compute_derivatives, us_default_init, xs_default_init
+from aligator_tpu_torch.probes import k2_split as KS
 from aligator_tpu_torch.probes import layout_probe as LP
 from aligator_tpu_torch.solvers import fddp as FD
 from aligator_tpu_torch.solvers.fddp import FDDPSettings, fddp_solve
@@ -306,11 +308,12 @@ def tol(ref, atol, mode) -> float:
     return atol if mode == "abs" else 1e-4 * max(scale, 1.0)
 
 
-def check_k2(label, g, v, x0, l0, mode, seen) -> dict:
-    """K2 against its plain version on the same inputs; records the
-    instantiation and copy width in ``seen``."""
-    seen.add(FR.forward_plan(g, v))
-    fk = FR.forward_sweep_batched(g, v, x0, l0)
+def check_k2(label, g, v, x0, l0, mode, seen, plan=None) -> dict:
+    """K2 against its plain version on the same inputs (``plan`` forces a
+    kernel, else the plan's); records the kernel and copy width in
+    ``seen``."""
+    fk = FR.forward_sweep_batched(g, v, x0, l0, plan=plan)
+    seen.add((str(FR.forward_sweep_batched.last_plan), FR.forward_choice(g, v)[1]))
     torch.cuda.synchronize()
     fp = FR.forward_sweep_batched_ref(g, v, x0, l0)
     errs = {}
@@ -318,6 +321,11 @@ def check_k2(label, g, v, x0, l0, mode, seen) -> dict:
         errs[name] = max_err(a, b)
         check(errs[name] <= tol(b, 1e-3, mode), f"K2 {name} {label}: {errs[name]}")
     return errs
+
+
+def k2_label(g, v) -> str:
+    """The kernel and copy width in floats the plan takes for these inputs."""
+    return "x".join(map(str, FR.forward_choice(g, v)))
 
 
 def check_k1(label, knots, mu) -> tuple:
@@ -336,19 +344,6 @@ def check_k1(label, knots, mu) -> tuple:
     return gk, gp, vp, errs
 
 
-def random_gains(gen, B, N, nx, nu, nc, dev):
-    """Forward-sweep inputs drawn at random: Acl = 0.9·I + 0.05·randn/√nx
-    (a stable closed loop over long horizons), K, Z and Vxx randn/√nx,
-    the offsets randn."""
-    L = N + 1
-    r = lambda *shape, scale=1.0: scale * torch.randn(*shape, device=dev, generator=gen)
-    s = nx ** -0.5
-    Acl = 0.9 * torch.eye(nx, device=dev) + r(B, L, nx, nx, scale=0.05 * s)
-    g, v = FR._pack(r(B, L, nu), r(B, L, nc), r(B, L, nx), r(B, L, nu, nx, scale=s),
-                    r(B, L, nc, nx, scale=s), Acl, r(B, L, nx, nx, scale=s), r(B, L, nx))
-    return g, v, r(B, nx), r(B, nx)
-
-
 def offset_copy(t, k: int):
     """A contiguous copy of ``t`` that starts ``k`` floats into its storage,
     4·k bytes past a 16-byte boundary."""
@@ -358,35 +353,31 @@ def offset_copy(t, k: int):
     return out
 
 
-def forward_halves_cost(B, L, nx, nu, nc):
-    """Bytes of each half of K2 (every input read once, every output
-    written once): the chain reads Acl, yff, x0 and writes xs; the rows
-    read K, Z, Vxx, kff, zff, vx, lbd0 and xs back, and write us, vs,
-    lbds."""
-    chain = 4.0 * B * (L * (nx * nx + 2 * nx) + nx)
-    rows = 4.0 * B * (L * (nu * nx + nc * nx + nx * nx + 2 * (nu + nc + nx) + nx) + nx)
-    return chain, rows
-
-
 def k2_halves(g, v, x0, l0):
-    """Times of K2's chain and rows kernels alone, their bytes bounds, and
-    the rows' library yardstick: one torch.baddbmm of the offsets and
-    [K; Z; Vxx] against xs over the B·L knots (timed here only)."""
+    """Times of K2's parts alone (the plan's: the pair's chain and rows
+    kernels, or the small kernel's sweep and its chain without the rows),
+    the pair's bytes bounds, and the rows' library yardstick: one
+    torch.baddbmm of the offsets and [K; Z; Vxx] against xs over the B·L
+    knots (timed here only)."""
     Bsz, L, nu, nx = g.K.shape
     nc = g.Z.shape[-2]
-    (xs, *_), (chain, rows) = FR.forward_halves(g, v, x0, l0)
-    chain_ms, rows_ms = cuda_ms(chain, 20), cuda_ms(rows, 20)
+    (xs, *_), plan, parts = FR.forward_parts(g, v, x0, l0)
+    out = {f"{name}_ms": cuda_ms(fn, 20) for name, fn in parts.items()}
+    for fn in parts.values():  # xs for the yardstick, whatever ran last
+        fn()
     M = torch.cat([g.K, g.Z, v.Vxx], 2).reshape(Bsz * L, nu + nc + nx, nx)
     off = torch.cat([g.kff, g.zff, v.vx], 2).reshape(Bsz * L, nu + nc + nx, 1)
     xv = xs.reshape(Bsz * L, nx, 1)
     lib_ms = cuda_ms(lambda: torch.baddbmm(off, M, xv), 20)
-    cb, rb = forward_halves_cost(Bsz, L, nx, nu, nc)
-    out = dict(chain_ms=chain_ms, chain_bound_ms=cb / HBM_BYTES_PER_S * 1e3, rows_ms=rows_ms,
+    cb, rb = KS.halves_bytes(Bsz, L, nx, nu, nc)
+    out.update(plan=str(plan), chain_bound_ms=cb / HBM_BYTES_PER_S * 1e3,
                rows_bound_ms=rb / HBM_BYTES_PER_S * 1e3, rows_library_ms=lib_ms)
-    print(f"K2 halves B={Bsz} L={L}: chain {chain_ms:.4f} ms (bound {out['chain_bound_ms']:.4f} "
-          f"ms, {cb / 1e9:.4f} GB), rows {rows_ms:.4f} ms (bound {out['rows_bound_ms']:.4f} ms, "
-          f"{rb / 1e9:.4f} GB), rows library torch.baddbmm {lib_ms:.4f} ms; "
-          f"{'x'.join(map(str, FR.forward_plan(g, v)))}")
+    print(f"K2 parts B={Bsz} L={L} ({k2_label(g, v)}): "
+          + ", ".join(f"{k[:-3]} {t:.4f} ms" for k, t in out.items() if k.endswith("_ms")
+                      and "bound" not in k and "library" not in k)
+          + f" (chain bound {out['chain_bound_ms']:.4f} ms, {cb / 1e9:.4f} GB; rows bound "
+          f"{out['rows_bound_ms']:.4f} ms, {rb / 1e9:.4f} GB), rows library torch.baddbmm "
+          f"{lib_ms:.4f} ms")
     return out
 
 
@@ -551,6 +542,45 @@ def k1_class_boundaries(dev) -> None:
                   + " ".join(f"{w[0]}/{w[1]}/{w[2]}" for w in ws))
 
 
+# The small forward kernel's class boundaries (nx), the solver paths'
+# widths and the widest rows of the chip checks: nx in {71, 84, 112}
+K2_BOUNDARY_NX = (1, 7, 12, 16, 17, 20, 32, 33, 36, 55, 56, 57, 64, 65, 71, 84, 112)
+
+
+def k2_class_boundaries(dev, gen, seen) -> None:
+    """K2's small kernel against its plain version in every class on both
+    sides of each boundary, at the solver paths' widths and at nx in {71,
+    84, 112} (B = 3, N = 30, nu = 5, nc = 3, nc = 0 at odd nx, the gate
+    1e-4·max|·|); then for one width of each class at L = 1 and 2 and with
+    every input 4 and 8 B past a 16-byte boundary; and the plan in Python
+    against the C entry."""
+    got = []
+    for nx in K2_BOUNDARY_NX:
+        g, v, a, l = KS.random_gains(gen, 3, 30, nx, 5, 0 if nx % 2 else 3, dev)
+        e = check_k2(f"nx={nx}", g, v, a, l, "rel", seen)
+        got.append(f"{nx} {k2_label(g, v)} {max(e.values()):.1e}")
+    print(f"k2 classes: the small kernel at each class boundary (nx, kernel x copy width, max "
+          f"abs err): {'; '.join(got)}")
+    got = []
+    for nx in (12, 20, 36, 56, 84):
+        for N, k in ((0, 0), (1, 0), (20, 1), (20, 2)):
+            g, v, a, l = KS.random_gains(gen, 2, N, nx, 4, 2, dev)
+            g, v = (type(t)(*(offset_copy(x, k) for x in t)) for t in (g, v))
+            e = check_k2(f"nx={nx} L={N + 1} offset {4 * k} B", g, v, a, l, "rel", seen)
+            got.append(f"{nx} L={N + 1} +{4 * k} B {k2_label(g, v)} {max(e.values()):.1e}")
+    print(f"k2 classes: at L = 1 and 2 and off a 16-byte boundary: {'; '.join(got)}")
+    lib = cuda_build.load("riccati_forward")
+    for nx in range(114):
+        for B in (1, 16, 64, 256):
+            try:
+                want = FR.forward_plan(nx, B).code
+            except ValueError:
+                want = -1
+            check(lib.riccati_forward_plan(nx, B) == want, f"K2's plan at nx={nx} B={B}")
+    print("k2 classes: forward_plan agrees with riccati_forward_plan at nx 0..113, B = 1, 16, "
+          "64 and 256")
+
+
 def kernels_phase(dev):
     """K1 and K2 against their plain versions on the card. Returns the
     per-kernel report at the bench widths."""
@@ -603,7 +633,7 @@ def kernels_phase(dev):
         errs_f = check_k2(f"B={Bsz} nc={nc}", gp, vp, x0, l0, mode, k2_seen)
         print(f"kernels B={Bsz} N={N} nx={nx} nu={nu} nc={nc} mu={mu_val:g} (K1 "
               f"{FR.backward_variant(nx, nu, nc)} widths, K2 "
-              f"{'x'.join(map(str, FR.forward_plan(gp, vp)))}): K1 max abs err "
+              f"{k2_label(gp, vp)}): K1 max abs err "
               f"{json.dumps(errs_b)}; K2 max abs err {json.dumps(errs_f)}")
         reports.append(dict(lq=lq, knots=knots, mu=mu, gp=gp, vp=vp, x0=x0, l0=l0,
                             err_b=max(errs_b.values()), err_f=max(errs_f.values()),
@@ -614,26 +644,24 @@ def kernels_phase(dev):
     k1_plan_agrees(dev)
     k1_class_boundaries(dev)
 
-    # K2 alone: the talos walk's widths (nc = 0, N = 195), the bench case's
-    # first 8 problems copied 4 B and 8 B past a 16-byte boundary, odd and
-    # wide nx at widths read at launch (random gains, stable closed loop)
+    # K2 alone: the bench case's first 8 problems copied 4 B and 8 B past a
+    # 16-byte boundary, by the plan's kernel (the pair) and by the small
+    # kernel's class 64 forced; the small kernel's classes on both sides of
+    # each boundary (random gains, stable closed loop)
     report = reports[-1]
     gp, vp, x0, l0 = (report[k] for k in ("gp", "vp", "x0", "l0"))
     for k in (1, 2):
         g8, v8 = (type(t)(*(offset_copy(a[:8].contiguous(), k) for a in t)) for t in (gp, vp))
-        errs = check_k2(f"offset {4 * k} B", g8, v8, x0[:8].contiguous(), l0[:8].contiguous(),
-                        "rel", k2_seen)
-        print(f"kernels K2 B=8 L={NSTEPS + 1} nx={NX} nu={NU} nc={NU}, every input {4 * k} B "
-              f"past a 16-byte boundary ({'x'.join(map(str, FR.forward_plan(g8, v8)))}): K2 max "
-              f"abs err {json.dumps(errs)}")
-    for Bsz, N, nx, nu, nc, mode in ((16, 195, NX, NU, 0, "rel"), (8, NSTEPS, 71, NU, NU, "rel"),
-                                     (8, NSTEPS, 84, NU, NU, "rel"), (4, 30, 112, 3, 2, "abs")):
-        g, v, gx0, gl0 = random_gains(gen, Bsz, N, nx, nu, nc, dev)
-        errs = check_k2(f"nx={nx} nc={nc} N={N}", g, v, gx0, gl0, mode, k2_seen)
-        print(f"kernels K2 B={Bsz} N={N} nx={nx} nu={nu} nc={nc} "
-              f"({'x'.join(map(str, FR.forward_plan(g, v)))}): K2 max abs err {json.dumps(errs)}")
-    want = {("bench", 4), ("bench", 2), ("bench", 1), ("runtime", 4), ("runtime", 1)}
-    check(want <= k2_seen, f"K2 instantiations and copy widths checked: {sorted(k2_seen)}")
+        for plan in (None, FR.ForwardPlan("small", 64)):
+            errs = check_k2(f"offset {4 * k} B", g8, v8, x0[:8].contiguous(),
+                            l0[:8].contiguous(), "rel", k2_seen, plan)
+            print(f"kernels K2 B=8 L={NSTEPS + 1} nx={NX} nu={NU} nc={NU}, every input {4 * k} "
+                  f"B past a 16-byte boundary ({FR.forward_sweep_batched.last_plan}, copies of "
+                  f"{4 * FR.forward_choice(g8, v8)[1]} B): K2 max abs err {json.dumps(errs)}")
+    k2_class_boundaries(dev, gen, k2_seen)
+    want = {("pair", 4), ("pair", 2), ("pair", 1)} | {
+        (c, w) for c in ("small<16>", "small<32>", "small<64>", "small<112>") for w in (4, 2, 1)}
+    check(want <= k2_seen, f"K2 kernels and copy widths checked: {sorted(k2_seen)}")
 
     # KKT residual of the fused solve on the first small problem, at
     # test_gar_pallas.py's float32 gate (5e-4)
@@ -648,11 +676,12 @@ def kernels_phase(dev):
     print(f"K1 occupancy at nx={nx} nu={nu} nc={nc}: {per_sm} blocks per SM "
           f"({FR._backward_smem_bytes(nx, nu, nc)} B of shared memory per block), "
           f"{per_sm * n_sm} resident blocks on {n_sm} SMs for B={Bsz}")
-    k2_per_sm, k2_smem = FR.forward_chain_occupancy(nx)
-    print(f"K2 chain occupancy at nx={nx}: {k2_per_sm} blocks per SM ({k2_smem} B of "
-          f"shared memory per block), {k2_per_sm * n_sm} resident blocks on {n_sm} SMs "
-          f"for B={Bsz}")
-    check(k2_per_sm >= 2, "two K2 chain blocks fit on an SM")
+    occ = FR.forward_occupancy(nx, nu, nc, L, Bsz)
+    print(f"K2 occupancy at nx={nx} B={Bsz} ({FR.forward_plan(nx, Bsz)}): "
+          f"{occ['blocks_per_sm']} blocks per SM ({occ['smem']} B of shared memory per block), "
+          f"{occ['blocks_per_sm'] * n_sm} resident blocks on {n_sm} SMs")
+    check(FR.forward_plan(nx, Bsz).kernel != "pair" or occ["blocks_per_sm"] >= 2,
+          "two blocks of the pair's chain fit on an SM")
 
     # times at the bench widths: kernel vs plain version on the same inputs
     kn, mu = report["knots"], report["mu"]
@@ -671,12 +700,13 @@ def kernels_phase(dev):
     g64, v64 = (type(t)(*(a[:MPC_BATCH] for a in t)) for t in (gp, vp))
     x64, l64 = x0[:MPC_BATCH], l0[:MPC_BATCH]
     k2_ms64 = cuda_ms(lambda: FR.forward_sweep_batched(g64, v64, x64, l64), 20)
+    plan64 = str(FR.forward_sweep_batched.last_plan)
     b2_64, _ = bound_ms(*forward_cost(MPC_BATCH, L, nx, nu, nc))
     print(f"bench widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms at C={c256} (plain {k1_plain:.3f} "
-          f"ms, bound {b1:.4f} ms by {by1}); K2 {k2_ms:.4f} ms (plain {k2_plain:.3f} ms, "
-          f"bound {b2:.4f} ms by {by2})")
+          f"ms, bound {b1:.4f} ms by {by1}); K2 {k2_ms:.4f} ms ({FR.forward_plan(nx, Bsz)}; plain "
+          f"{k2_plain:.3f} ms, bound {b2:.4f} ms by {by2})")
     print(f"bench widths B={MPC_BATCH} L={L}: K1 {k1_ms64:.4f} ms at C={c64} (bound "
-          f"{b1_64:.4f} ms); K2 {k2_ms64:.4f} ms (bound {b2_64:.4f} ms)")
+          f"{b1_64:.4f} ms); K2 {k2_ms64:.4f} ms ({plan64}; bound {b2_64:.4f} ms)")
     halves = k2_halves(gp, vp, x0, l0)
     halves64 = k2_halves(g64, v64, x64, l64)
     return [
@@ -691,11 +721,39 @@ def kernels_phase(dev):
              replaces="aligator_tpu/gar/pallas_riccati.py:549",
              max_abs_err=report["err_f"], ms=k2_ms, plain_ms=k2_plain,
              bound_ms=b2, bound_by=by2, library_ms=None,
-             ms_b64=k2_ms64, bound_ms_b64=b2_64, kernels_per_launch=2,
+             ms_b64=k2_ms64, bound_ms_b64=b2_64, plan_b64=plan64,
              **halves, rows_library_call="torch.baddbmm(offsets, [K; Z; Vxx], xs) "
              "over the B*L knots, rows half only",
              halves_b64=halves64),
     ]
+
+
+def k2_small_check(dev) -> list:
+    """K2 at the widths of the solver paths (the quadrotor's, the jump's,
+    the walk's at B = 16 and 1, the lq long row's) and the bench widths at
+    B = 1, 16, 64 and 256 (``probes.k2_split``): by the plan's kernel and,
+    at nx = 56 (the pair), by the small kernel's class 64 too,
+    each held against its plain version (1e-4·max(1, max|·|)) and timed
+    with its parts beside its bound, the plain version and the rows'
+    yardstick ``torch.baddbmm``. Prints at each batch at nx = 56 whether
+    the plan's kernel was the faster."""
+    t0 = time.perf_counter()
+    cases = [c for c in KS.CASES if c[0] != "bench" or c[5] in (1, 16, 64, 256)]
+    res = [KS.split(*c, 20, dev) for c in cases]
+    for c in res:
+        for r in c["by_plan"]:
+            for k in (k for k in r if k.endswith("rel_err")):
+                check(r[k] <= KS.GATE, f"K2 {r['plan']} ({k}) at {c['case']} B={c['B']}: "
+                      f"{r[k]:.3e} of max(1, max|plain|)")
+        if len(c["by_plan"]) == 2:
+            mine, other = c["by_plan"]
+            print(f"k2 small: nx=56 N={c['N']} B={c['B']}: the plan's {mine['plan']} "
+                  f"{mine['sweep_ms']:.4f} ms, {other['plan']} {other['sweep_ms']:.4f} ms: the "
+                  f"plan's {'faster' if mine['sweep_ms'] <= other['sweep_ms'] else 'SLOWER'}")
+    print(f"k2 small: {len(res)} cases held and timed in {time.perf_counter() - t0:.1f} s")
+    return [dict(case=c["case"], B=c["B"], N=c["N"], nx=c["nx"], bound_ms=c["sweep_bound_ms"],
+                 plain_ms=c["plain_ms"], rows_library_ms=c["rows_library_ms"],
+                 ring=c["ring"], by_plan=c["by_plan"]) for c in res]
 
 
 def probe_phase(dev):
@@ -747,6 +805,7 @@ def counted() -> dict:
 def reset_counts():
     for w in counted().values():
         w.launches = 0
+    FR.forward_sweep_batched.by_kernel.clear()  # K2's sweeps by kernel name
 
 
 def read_counts() -> dict:
@@ -988,7 +1047,7 @@ def lq_phase(dev):
         ref = out if name == "serial" else ref
         err = rel_err(out, ref)
         walls = []
-        for _ in range(3):
+        for _ in range(1 if name == "serial" else 3):  # serial: one, for the time limit
             t0 = time.perf_counter()
             run()
             torch.cuda.synchronize()
@@ -1022,8 +1081,9 @@ def lq_phase(dev):
     b1, by1 = bound_ms(*backward_cost(1, LQ_LONG_N + 1, NX, NU, NU, 1))
     b2, by2 = bound_ms(*forward_cost(1, LQ_LONG_N + 1, NX, NU, NU))
     print(f"lq long: K1 alone at B=1 L={LQ_LONG_N + 1} C={c1} {k1_ms:.4f} ms (bound {b1:.4f} ms by "
-          f"{by1}, {k1_ms / (LQ_LONG_N + 1) * 1e3:.2f} us per knot); K2 {k2_ms:.4f} ms (bound "
-          f"{b2:.4f} ms by {by2}); launches in the comparison K1={k1} K2={k2}")
+          f"{by1}, {k1_ms / (LQ_LONG_N + 1) * 1e3:.2f} us per knot); K2 {k2_ms:.4f} ms "
+          f"({FR.forward_sweep_batched.last_plan}, {k2_ms / (LQ_LONG_N + 1) * 1e3:.3f} us per "
+          f"knot; bound {b2:.4f} ms by {by2}); launches in the comparison K1={k1} K2={k2}")
     print(f"lq long summary: {json.dumps(table)}")
     print(f"lq phase: {time.perf_counter() - t_phase:.1f} s")
 
@@ -1115,6 +1175,7 @@ def k1_walk_check(dev):
     l0 = torch.randn(Bsz, nx, device=dev, generator=gen)
     errs_f = check_k2(f"walk B={Bsz}", gp, vp, x0, l0, "rel", set())
     k2_ms = cuda_ms(lambda: FR.forward_sweep_batched(gp, vp, x0, l0), 20)
+    plan = str(FR.forward_sweep_batched.last_plan)
     k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
     b1, by1 = bound_ms(*backward_cost(Bsz, L, nx, nu, nc, 1))
     b1_1, by1_1 = bound_ms(*backward_cost(1, L, nx, nu, nc, 1))
@@ -1123,7 +1184,7 @@ def k1_walk_check(dev):
     print(f"walk widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms at C={c16} (plain {k1_plain:.3f} ms, "
           f"bound {b1:.4f} ms by {by1}, {k1_ms / b1:.1f}x; {k1_ms / L * 1e3:.2f} us per knot; "
           f"{per_sm} blocks per SM without a cluster); K1 at B=1 {k1_ms1:.4f} ms at C={c1} "
-          f"(bound {b1_1:.4f} ms by {by1_1}); K2 {k2_ms:.4f} ms (plain {k2_plain:.3f} ms, bound "
+          f"(bound {b1_1:.4f} ms by {by1_1}); K2 {k2_ms:.4f} ms ({plan}; plain {k2_plain:.3f} ms, bound "
           f"{b2:.4f} ms by {by2}); K2 max abs err {json.dumps(errs_f)}")
     return [
         dict(name="riccati_backward_walk", route="cuda",
@@ -1136,8 +1197,8 @@ def k1_walk_check(dev):
         dict(name="riccati_forward_walk", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_forward.cu",
              replaces="aligator_tpu/gar/pallas_riccati.py:549", path="talos walk",
-             max_abs_err=max(errs_f.values()), ms=k2_ms, plain_ms=k2_plain, bound_ms=b2,
-             bound_by=by2, library_ms=None),
+             plan=plan, max_abs_err=max(errs_f.values()), ms=k2_ms, plain_ms=k2_plain,
+             bound_ms=b2, bound_by=by2, library_ms=None),
     ]
 
 
@@ -1666,11 +1727,13 @@ def kernels_held_to_plain(log: list, backward_error: bool = False):
         return out
 
     held_b.launches, held_f.launches = orig_b.launches, orig_f.launches
+    held_f.by_kernel, held_f.last_plan = orig_f.by_kernel, orig_f.last_plan
     FR.backward_sweep_batched, FR.forward_sweep_batched = held_b, held_f
     try:
         yield log
     finally:
         orig_b.launches, orig_f.launches = held_b.launches, held_f.launches
+        orig_f.last_plan = held_f.last_plan
         FR.backward_sweep_batched, FR.forward_sweep_batched = orig_b, orig_f
 
 
@@ -1909,13 +1972,14 @@ def k_widths_check(dev, label, Bsz, N, nx, nu, nc, seed, mus, suffix, path, b256
         errs_b[mu_val], errs_f[mu_val] = e1, e2
         print(f"kernels K1 {label} widths B={Bsz} N={N} nx={nx} nu={nu} nc={nc} "
               f"mu={mu_val:g} ({variant}): max abs err {json.dumps(e1)}; K2 "
-              f"({'x'.join(map(str, FR.forward_plan(gp, vp)))}) max abs err {json.dumps(e2)}")
+              f"({k2_label(gp, vp)}) max abs err {json.dumps(e2)}")
     mu = torch.full((Bsz,), mus[0], device=dev)
     gp, vp = FR.backward_sweep_batched_ref(knots, mu)
     L = N + 1
     k1_ms = cuda_ms(lambda: FR.backward_sweep_batched(knots, mu), 20)
     k1_plain = cuda_ms(lambda: FR.backward_sweep_batched_ref(knots, mu), 3)
     k2_ms = cuda_ms(lambda: FR.forward_sweep_batched(gp, vp, x0, l0), 20)
+    plan = str(FR.forward_sweep_batched.last_plan)
     k2_plain = cuda_ms(lambda: FR.forward_sweep_batched_ref(gp, vp, x0, l0), 3)
     b1, by1 = bound_ms(*backward_cost(Bsz, L, nx, nu, nc, 1))
     b2, by2 = bound_ms(*forward_cost(Bsz, L, nx, nu, nc))
@@ -1923,8 +1987,9 @@ def k_widths_check(dev, label, Bsz, N, nx, nu, nc, seed, mus, suffix, path, b256
     ptx = ptxas_of(instantiation)
     print(f"{label} widths B={Bsz} L={L}: K1 {k1_ms:.4f} ms (plain {k1_plain:.3f} ms, bound "
           f"{b1:.4f} ms by {by1}, {k1_ms / b1:.1f}x; {k1_ms / L * 1e3:.2f} us per knot; "
-          f"{per_sm} blocks per SM; {instantiation}: {ptx}); K2 {k2_ms:.4f} ms (plain "
-          f"{k2_plain:.3f} ms, bound {b2:.4f} ms by {by2}, {k2_ms / b2:.1f}x)")
+          f"{per_sm} blocks per SM; {instantiation}: {ptx}); K2 {k2_ms:.4f} ms ({plan}, "
+          f"{k2_ms / L * 1e3:.3f} us per knot; plain {k2_plain:.3f} ms, bound {b2:.4f} ms by "
+          f"{by2}, {k2_ms / b2:.1f}x)")
     rows = [
         dict(name=f"riccati_backward_{suffix}", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_backward.cu",
@@ -1935,7 +2000,7 @@ def k_widths_check(dev, label, Bsz, N, nx, nu, nc, seed, mus, suffix, path, b256
              us_per_knot=k1_ms / L * 1e3, blocks_per_sm=per_sm, ptxas=ptx),
         dict(name=f"riccati_forward_{suffix}", route="cuda",
              source="aligator_tpu_torch/csrc/riccati_forward.cu",
-             replaces="aligator_tpu/gar/pallas_riccati.py:549", path=path,
+             replaces="aligator_tpu/gar/pallas_riccati.py:549", path=path, plan=plan,
              max_abs_err=max(max(e.values()) for e in errs_f.values()), ms=k2_ms,
              plain_ms=k2_plain, bound_ms=b2, bound_by=by2, library_ms=None),
     ]
@@ -1973,7 +2038,7 @@ def quadrotor_solves(dev, part: str) -> dict:
     runs in two child processes). ``part="fused"``: in float32 through
     the fused kernels, K1 and K2 launches counted around that solve alone
     and each call held to the plain versions, the scenarios' outcomes, the
-    fused solve's wall (median of 3) and one traced derivative pass;
+    fused solve's wall (one solve) and one traced derivative pass;
     ``part="reference"``: the same scenarios through the serial path in
     float32 and in float64."""
     full_f32_matmuls()
@@ -1996,7 +2061,8 @@ def quadrotor_solves(dev, part: str) -> dict:
         res = solve(prob16, fused)
         torch.cuda.synchronize()
     out = dict(first_s=time.perf_counter() - t0, counts=read_counts(), fused=host(res),
-               held=held, N=problem.nsteps, nx=problem.space.nx, ndx=problem.ndx,
+               k2_kernels=dict(FR.forward_sweep_batched.by_kernel), held=held,
+               N=problem.nsteps, nx=problem.space.nx, ndx=problem.ndx,
                nu=problem.nu, nc=problem.nc)
     # every scenario's end point and least clearances (mug, pillar)
     pN = torch.stack([frame_placement(model, x[-1, :model.nq], base).p for x in res.xs])
@@ -2004,7 +2070,7 @@ def quadrotor_solves(dev, part: str) -> dict:
     out["clearances"] = np.array([TQ.min_clearances(model, x, geoms) for x in res.xs])
     out["pN0"] = pN[0].cpu().numpy()
     walls = []
-    for _ in range(3):
+    for _ in range(1):  # one solve: the script's time limit
         t0 = time.perf_counter()
         solve(prob16, fused)
         torch.cuda.synchronize()
@@ -2048,6 +2114,10 @@ def quadrotor_report(q) -> dict:
           "quadrotor xs finite, of the expected shape")
     check(bool(f["conv"].all()), "every quadrotor scenario converges through the kernels")
     check(k1 == k2 >= max(iters) >= 1, "quadrotor kernel launch counts")
+    want = str(FR.forward_plan(q["ndx"], QUAD_BATCH))
+    print(f"quadrotor: K2 sweeps by kernel {q['k2_kernels']}")
+    check(q["k2_kernels"] == {want: k2} and want == "small<16>",
+          f"every K2 launch of the quadrotor's fused solve was the small kernel {want}")
     held = q["held"]
     worst = {k: max((e for n, e, *_ in held if n == k), default=float("nan"))
              for k in ("K1", "K2")}
@@ -2089,7 +2159,7 @@ def quadrotor_report(q) -> dict:
     check(float(q["miss"].max()) < 5e-2, "every quadrotor scenario ends within 5e-2 of the target")
     check(float(clear.min()) >= TQ.MARGIN - 2e-3, "every quadrotor scenario keeps its clearances")
     print(f"quadrotor: fused solve of {QUAD_BATCH} scenarios wall ms "
-          f"{[round(w, 1) for w in q['walls_ms']]} (median {float(np.median(q['walls_ms'])):.1f}, "
+          f"{[round(w, 1) for w in q['walls_ms']]} (one solve, for the time limit; "
           f"beside the solvers phase), {max(iters)} iterations, K1 {k1} and K2 {k2} launches "
           f"per solve; one compute_derivatives call at B={QUAD_BATCH}, N={q['N']}: "
           f"{q['deriv_kernels']} device kernels, device busy {q['deriv_busy_ms']:.3f} ms")
@@ -2170,8 +2240,8 @@ def jump_solves(dev, part: str) -> dict:
     runs in a child process of its own. ``"held"``: in float32 through the
     fused kernels, K1 and K2 launches counted around that solve alone and
     each call held to the plain versions and checked knot by knot, the base
-    heights of every scenario, then the wall of three solves unheld, capped
-    at ``JUMP_TIMED_ITERS`` iterations, and one traced derivative pass;
+    heights of every scenario, then the wall of one solve unheld, capped at
+    ``JUMP_TIMED_ITERS`` iterations, and one traced derivative pass;
     ``"serial"`` and ``"f64"``: the same scenarios through the serial path
     in float32 and in float64."""
     full_f32_matmuls()
@@ -2204,12 +2274,12 @@ def jump_solves(dev, part: str) -> dict:
     with kernels_held_to_plain([], backward_error=True) as held:
         res, secs = timed(prob16, fused)
     out = dict(held_s=secs, plain_s=sum(e[4] for e in held), counts=read_counts(),
-               fused=host(res), held=held,
+               k2_kernels=dict(FR.forward_sweep_batched.by_kernel), fused=host(res), held=held,
                N=problem.nsteps, nx=problem.space.nx, ndx=problem.ndx, nu=problem.nu,
                nc=problem.nc)
     capped = ProxDDPSettings(lq_solver="pallas",
                              **{**JUMP_SETTINGS, "max_iters": JUMP_TIMED_ITERS})
-    runs = [timed(prob16, capped) for _ in range(3)]
+    runs = [timed(prob16, capped)]  # one solve: the script's time limit
     out["timed_s"] = [secs for _, secs in runs]
     out["timed_iters"] = [int(r.num_iters.max()) for r, _ in runs]
     xs, us = xs_default_init(prob16), us_default_init(prob16)
@@ -2385,6 +2455,10 @@ def jump_report(q) -> dict:
     check(f["shape"] == (JUMP_BATCH, q["N"] + 1, q["nx"]) and f["finite"],
           "jump xs finite, of the expected shape")
     check(k1 == k2 >= max(iters) >= 1, "jump kernel launch counts")
+    want = str(FR.forward_plan(q["ndx"], JUMP_BATCH))
+    print(f"legged: jump K2 sweeps by kernel {q['k2_kernels']}")
+    check(q["k2_kernels"] == {want: k2} and want == "small<64>",
+          f"every K2 launch of the jump's fused solve was the small kernel {want}")
     held = q["held"]
     check(sum(n == "K1" for n, *_ in held) == k1 and sum(n == "K2" for n, *_ in held) == k2,
           "every jump kernel call held to its plain version")
@@ -2555,7 +2629,7 @@ def dist_rank(part: str, mesh, dev) -> dict:
         launches.append(read_counts())
         return res
 
-    res, walls = timed_solve(counted_solve)
+    res, walls = timed_solve(counted_solve, reps=1)
     return dict(coords=mesh.coords, rows=(b * rows, (b + 1) * rows), walls=walls,
                 k1=launches[0]["riccati_backward"], k2=launches[0]["riccati_forward"],
                 **result_arrays(res))
@@ -2691,7 +2765,7 @@ def distributed_phase(dev, smi: str, pipes, go) -> dict:
           f"the pendulum, examples and legged children")
     x0s = batch_x0(DIST_BATCH)
     p64 = dist_problem(dev, x0s, torch.float64)
-    legs, wall_legs = timed_solve(lambda: solve(p64, dist_settings()))
+    legs, wall_legs = timed_solve(lambda: solve(p64, dist_settings()), reps=1)
     legs = result_arrays(legs)
     serial = result_arrays(solve(p64, dist_settings(legs=0)))
     bench = dist_problem(dev, batch_x0(BATCH), torch.float32)
@@ -2727,7 +2801,7 @@ def distributed_phase(dev, smi: str, pipes, go) -> dict:
         sharing = "processes time-sharing one card" if world > 1 else "one child process"
         print(f"distributed ({part}): {world} rank(s), grid (b, t) = ({world // t}, {t}), "
               f"{backend}; iterations max {max(int(o['num_iters'].max()) for o in ranks)}; "
-              f"{detail}; solve wall s, median of 3, per rank "
+              f"{detail}; solve wall s (one solve, for the time limit), per rank "
               f"{[round(w, 3) for w in walls]} ({sharing}) beside {med(ref_wall):.3f} in "
               f"one process; part {elapsed:.1f} s")
     return launches
@@ -2753,6 +2827,7 @@ def main() -> int:
 
     t_run = time.perf_counter()
     kernels = kernels_phase(dev) + k1_walk_check(dev)
+    kernels[1]["small_split"] = k2_small_check(dev)  # the riccati_forward row
     k1_cluster_check(dev)
     kernels += probe_phase(dev)
     print(f"kernel and probe phases: {time.perf_counter() - t_run:.1f} s")

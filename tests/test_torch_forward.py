@@ -1,13 +1,15 @@
 """The host side of the forward sweep K2 (``fused_riccati.forward_variant``
 and ``forward_sweep_batched``) on the CPU.
 
-``forward_variant`` picks the kernels' instantiation and copy width from
-the state width and the arrays' addresses; here it is held to the
-alignment rules of ``csrc/riccati_forward.cu``. ``forward_sweep_batched``
+``forward_variant`` picks the kernel (``forward_plan``: the small kernel's
+class, or the pair of chain and rows kernels at nx = 56) and the copy method
+(``forward_copy``: 16-byte bulk copies, or cp.async of 8 or 4 bytes) from
+the state width, the batch and the arrays' addresses; here it is held to
+the alignment rules of ``csrc/riccati_forward.cu``. ``forward_sweep_batched``
 takes its plain version for CPU tensors; it is held against the JAX
 ``forward_sweep_batched`` (the Pallas kernel in interpret mode, as
 tests/test_torch_fused_riccati.py runs it) on random float32 gains, at
-nc = 0 and at the bench widths. Both sides compute the same products in
+nc = 0, at the bench widths and at the quadrotor's and the solo jump's. Both sides compute the same products in
 float32 in different orders; over N = 5 steps of a stable closed loop
 (|x| < 10) they agree to 2e-5·max(1, max|·|), ~170 ulp of the largest
 entry."""
@@ -46,31 +48,41 @@ def _rowwise(nx, nu, nc, k, B=2, L=3):
 
 @pytest.mark.parametrize("nc", [0, 22])
 @pytest.mark.parametrize("nx, k, want", [
-    (56, 0, ("bench", 4)), (56, 1, ("bench", 1)), (56, 2, ("bench", 2)),
-    (56, 3, ("bench", 1)), (7, 0, ("runtime", 1)), (7, 2, ("runtime", 1)),
-    (71, 0, ("runtime", 1)), (71, 1, ("runtime", 1)),
+    (56, 0, ("pair", 4)), (56, 1, ("pair", 1)), (56, 2, ("pair", 2)), (56, 3, ("pair", 1)), (7, 0, ("small<16>", 1)), (7, 2, ("small<16>", 1)),
+    (71, 0, ("small<112>", 1)), (71, 1, ("small<112>", 1)),
 ])
 def test_forward_variant_alignment(nx, k, want, nc):
     """16-byte copies need nx % 4 == 0 and every row-wise array 16-byte
     aligned; 8-byte copies nx even and 8-byte alignment; else 4 bytes. The
-    instantiation follows nx alone (nu and nc only count rows)."""
+    kernel follows nx and the batch alone (nu and nc only count rows)."""
     assert FR.forward_variant(nx, _rowwise(nx, 22, nc, k)) == want
 
 
-@pytest.mark.parametrize("k, want", [(0, ("bench", 4)), (1, ("bench", 1)), (2, ("bench", 2))])
+@pytest.mark.parametrize("k, want", [(0, ("small<64>", 4)), (1, ("small<64>", 1)),
+                                     (2, ("small<64>", 2))])
 def test_forward_plan_reads_the_inputs(k, want):
-    """forward_plan hands the gains' own addresses to forward_variant."""
-    a, _, _ = _gains(2, 3, 56, 22, 0, seed=0)
+    """forward_choice hands the gains' own addresses and batch to
+    forward_variant."""
+    a, _, _ = _gains(2, 3, 36, 12, 0, seed=0)
     t = {n: _offset_copy(torch.as_tensor(v), k) for n, v in a.items()}
     g, v = FR._pack(t["kff"], t["zff"], t["yff"], t["K"], t["Z"], t["Acl"], t["Vxx"], t["vx"])
-    assert FR.forward_plan(g, v) == want
+    assert FR.forward_choice(g, v) == want
 
 
 def test_forward_variant_widths():
-    assert FR.forward_variant(84, [0, 16, 32]) == ("runtime", 4)
-    assert FR.forward_variant(14, [0, 8]) == ("runtime", 2)
-    assert FR.forward_variant(56, [0, 8]) == ("bench", 2)
-    assert FR.forward_variant(112, []) == ("runtime", 4)
+    """Each nx takes the least class that holds it, nx = 56 the pair, at
+    every batch."""
+    assert FR.forward_variant(84, [0, 16, 32]) == ("small<112>", 4)
+    assert FR.forward_variant(14, [0, 8]) == ("small<16>", 2)
+    assert FR.forward_variant(56, [0, 8]) == ("pair", 2)
+    assert FR.forward_variant(112, []) == ("small<112>", 4)
+    want = {1: 16, 16: 16, 17: 32, 32: 32, 33: 64, 55: 64, 57: 64, 64: 64, 65: 112, 112: 112}
+    for B in (1, 16, 256):
+        assert FR.forward_plan(56, B) == FR.ForwardPlan("pair") and FR.ForwardPlan("pair").code == 1
+        for nx, nxc in want.items():
+            plan = FR.forward_plan(nx, B)
+            assert (plan.kernel, plan.nxc, plan.code, str(plan)) == (
+                "small", nxc, nxc, f"small<{nxc}>"), nx
     for nx in (0, 113):
         with pytest.raises(ValueError, match="1 <= nx <= 112"):
             FR.forward_variant(nx, [])
@@ -90,7 +102,8 @@ def _gains(B, N, nx, nu, nc, seed):
     return a, r(B, nx), r(B, nx)
 
 
-@pytest.mark.parametrize("nx, nu, nc", [(7, 3, 0), (56, 22, 22), (56, 22, 0)])
+@pytest.mark.parametrize("nx, nu, nc", [(7, 3, 0), (56, 22, 22), (56, 22, 0), (12, 4, 6),
+                                        (36, 12, 0)])
 def test_forward_sweep_matches_pallas(nx, nu, nc):
     B, N = 4, 5
     a, x0, l0 = _gains(B, N, nx, nu, nc, seed=nx + nc)
