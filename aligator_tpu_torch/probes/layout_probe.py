@@ -18,7 +18,13 @@ beside it (``*_ref``). For i < rep, in float32, summed into zeros:
 Each launch repeats its construct ``rep`` times; the slope of the time
 over two repeat counts is the cost of one construct, free of launch and
 readback overhead (the JAX script's method, with CUDA events in place of
-the host clock). Each wrapper takes its plain version only for tensors on
+the host clock); a kernel's time is the median of ``SLOPES`` slopes, with
+their spread. The products run on the tensor cores in error-compensated
+3×TF32 (``csrc/layout_probe.cu``), so a construct's least time is the
+larger of its product's three TF32 passes at the tensor cores' rate and
+its float32 instructions (adds, multiplies and FMAs, one each) at the
+float32 pipe's issue rate (``Probe.bound_s``); ``Probe.old_bound_s``
+keeps the earlier bound, operations over the float32 FMA rate. Each wrapper takes its plain version only for tensors on
 the CPU; for CUDA tensors it launches the kernel or raises. Unlike the
 JAX script, which prints FAIL and goes on, a probe that fails to build,
 to launch or to match its plain version raises.
@@ -41,7 +47,13 @@ from aligator_tpu_torch.utils import cuda_build
 from aligator_tpu_torch.utils.device import full_f32_matmuls
 
 TB, R, C = 128, 24, 57  # probe_mosaic.py:34
-TIMED_CALLS = 20
+# Calls between the two events of one timing. A construct of the fastest
+# bodies takes a few nanoseconds, so 50 more repeats move a launch by well
+# under a microsecond: many calls average the launches' jitter out.
+TIMED_CALLS = 400
+SLOPES = 3         # a kernel's time: the median of this many slopes,
+MAX_SLOPES = 9     # or of up to this many while they spread by more than
+MAX_SPREAD = 0.10  # this share of their median
 # The plain versions and library loops issue up to 4 launches per construct:
 # 2 calls at rep 60 stay within the stream's queue (about a thousand launches)
 QUEUED_CALLS = 2
@@ -50,6 +62,14 @@ SPIN_CYCLES_PER_S = 2e9  # the H100's SM clock is at most 1.98 GHz
 # Each repeat adds float32 sums of up to 56 products taken in another
 # order, and with fused multiply-adds, than the plain version's calls.
 TOL_PER_REP = 1e-5
+# H100 SXM at its 700 W limit (NVIDIA's data sheet): dense TF32 on the
+# tensor cores; float32 outside them, an FMA counted as two operations;
+# and the float32 pipe's issue rate, one add, multiply or FMA a lane a
+# cycle on 132 SMs of 128 lanes at 1.98 GHz.
+TF32_FLOP_PER_S = 495e12
+F32_FLOP_PER_S = 67e12
+F32_INSTR_PER_S = 132 * 128 * 1.98e9
+TF32_PASSES = 3  # hi·hi′ + hi·lo′ + lo·hi′
 
 _SRC = "scripts/probe_mosaic.py"
 
@@ -208,44 +228,75 @@ class Probe:
     shapes: Tuple[Tuple[int, ...], ...]
     reps: Tuple[int, int]      # the two repeat counts of the slope
     replaces: str              # file:line of the Pallas body
-    flops: int                 # operations of one construct
+    flops: int                 # operations of one construct (an FMA two)
     nbytes: int                # one launch: inputs read once, output written once
+    instructions: int          # float32 adds, multiplies and FMAs of one construct
+    tf32_flops: int = 0        # its product's 2·m·k·n, taken TF32_PASSES times
+
+    @property
+    def bound_s(self) -> float:
+        """Least seconds of one construct: its product's TF32 passes on the
+        tensor cores or its float32 instructions on the float32 pipe,
+        whichever takes longer."""
+        return max(TF32_PASSES * self.tf32_flops / TF32_FLOP_PER_S,
+                   self.instructions / F32_INSTR_PER_S)
+
+    @property
+    def old_bound_s(self) -> float:
+        """The bound before the products moved to the tensor cores: all
+        operations over the float32 FMA rate."""
+        return self.flops / F32_FLOP_PER_S
 
 
-def _bmm_probe(tag, tb, r, k, c):
-    return Probe(
-        tag, f"bmm_{tb}x({r}x{k}@{k}x{c})", batched_mm, batched_mm_ref,
-        lambda x, i: torch.bmm(x[0] + i, x[1]), ((tb, r, k), (tb, k, c)), (4, 20),
-        f"{_SRC}:112", 2 * tb * r * k * c + tb * r * k + tb * r * c,
-        4 * (tb * r * k + tb * k * c + tb * r * c))
+def _product(tag, name, kernel, plain, library, nb, m, k, n, reps, line, b_each):
+    """A product probe: nb products (a + i) @ b of (m, k) @ (k, n), b one
+    per product or (``b_each`` False) one for all. Its float32
+    instructions: the offset, one add per element of a, and the
+    accumulation, one add per output."""
+    shapes = ((nb, m, k), (nb, k, n)) if nb > 1 else ((m, k), (k, n))
+    adds = nb * m * k + nb * m * n
+    b_elems = nb * k * n if b_each else k * n
+    return Probe(tag, name, kernel, plain, library, shapes, reps, f"{_SRC}:{line}",
+                 2 * nb * m * k * n + adds, 4 * (nb * m * k + b_elems + nb * m * n),
+                 adds, 2 * nb * m * k * n)
 
 
 def probes() -> List[Probe]:
     """The seven probes of ``probe_mosaic.py:132-150``. Operations of one
     construct: a product 2·m·k·n, the offset one add per element of the
     first operand, the reduction and the accumulation one add per element
-    they produce."""
+    they produce. Its float32 instructions count an add, a multiply and
+    an FMA one each (a product's multiply-adds run on the tensor cores)."""
     M, K, N = 1536, 56, 78
     slab = R * C * TB
     return [
-        _bmm_probe("P1a", 16, 24, 24, 57),
-        _bmm_probe("P1b", 16, 56, 56, 78),
-        Probe("P1c", f"shared_mm_({M}x{K}@{K}x{N})", shared_mm, shared_mm_ref,
-              lambda x, i: (x[0] + i) @ x[1], ((M, K), (K, N)), (10, 60),
-              f"{_SRC}:123", 2 * M * K * N + M * K + M * N, 4 * (M * K + K * N + M * N)),
+        _product("P1a", "bmm_16x(24x24@24x57)", batched_mm, batched_mm_ref,
+                 lambda x, i: torch.bmm(x[0] + i, x[1]), 16, 24, 24, 57, (4, 20), 112, True),
+        _product("P1b", "bmm_16x(56x56@56x78)", batched_mm, batched_mm_ref,
+                 lambda x, i: torch.bmm(x[0] + i, x[1]), 16, 56, 56, 78, (4, 20), 112, True),
+        _product("P1c", f"shared_mm_({M}x{K}@{K}x{N})", shared_mm, shared_mm_ref,
+                 lambda x, i: (x[0] + i) @ x[1], 1, M, K, N, (10, 60), 123, False),
+        # offset and accumulation: an add each per element
         Probe("P1d", "transpose_(TB,R,C)->(R,C,TB)", transpose, transpose_ref,
               lambda x, i: (x[0] + i).permute(1, 2, 0).contiguous(), ((TB, R, C),),
-              (10, 60), f"{_SRC}:71", 2 * slab, 4 * 2 * slab),
+              (10, 60), f"{_SRC}:71", 2 * slab, 4 * 2 * slab, 2 * slab),
+        # the offset an add per element of a, then an FMA per element of b
         Probe("P1e", "bcast_fma", bcast_fma, bcast_fma_ref,
               lambda x, i: (x[0] + i)[:, None, :] * x[1], ((R, TB), (R, C, TB)),
-              (10, 60), f"{_SRC}:79", R * TB + 2 * slab, 4 * (R * TB + 2 * slab)),
+              (10, 60), f"{_SRC}:79", R * TB + 2 * slab, 4 * (R * TB + 2 * slab),
+              R * TB + slab),
+        # the offset an add per element, the sum over r and the
+        # accumulation together an add per element
         Probe("P1f", "slab_reduce", slab_reduce, slab_reduce_ref,
               lambda x, i: (x[0] + i).sum(0), ((R, C, TB),), (10, 60),
-              f"{_SRC}:89", 2 * slab, 4 * (slab + C * TB)),
+              f"{_SRC}:89", 2 * slab, 4 * (slab + C * TB), 2 * slab),
+        # the offset an add per element of L, R FMAs per output, the
+        # accumulation an add per output
         Probe("P1g", "lanes_apply_RxRxTB", lanes_apply, lanes_apply_ref,
               lambda x, i: torch.einsum("jkl,kcl->jcl", x[0] + i, x[1]),
               ((R, R, TB), (R, C, TB)), (10, 60), f"{_SRC}:97",
-              2 * R * slab + R * R * TB + slab, 4 * (R * R * TB + 2 * slab)),
+              2 * R * slab + R * R * TB + slab, 4 * (R * R * TB + 2 * slab),
+              R * R * TB + R * slab + slab),
     ]
 
 
@@ -294,20 +345,40 @@ def slope(fn: Callable, inputs, reps, calls: int = TIMED_CALLS) -> dict:
                 first_per_s=tries[0][0] if len(tries) > 1 else None)
 
 
+def median_slope(fn: Callable, inputs, reps) -> dict:
+    """The median of ``SLOPES`` slopes, or of more (up to ``MAX_SLOPES``)
+    while their spread, (max − min)/median, exceeds ``MAX_SPREAD``."""
+    runs = [slope(fn, inputs, reps) for _ in range(SLOPES)]
+    while True:
+        per = sorted(r["per_s"] for r in runs)
+        med = per[len(per) // 2]
+        spread = (per[-1] - per[0]) / med if med > 0 else float("inf")
+        if spread <= MAX_SPREAD or len(runs) >= MAX_SLOPES:
+            break
+        runs += [slope(fn, inputs, reps) for _ in range(2)]
+    return dict(per_s=med, spread=spread, slopes=[r["per_s"] for r in runs],
+                launch_s=sorted(r["launch_s"] for r in runs)[len(runs) // 2],
+                first_per_s=next((r["first_per_s"] for r in runs
+                                  if r["first_per_s"] is not None), None))
+
+
 def probe(name: str, fn: Callable, inputs, reps) -> dict:
-    """The kernel's slope, printed in the JAX script's line format."""
-    s = slope(fn, inputs, reps)
+    """The kernel's median slope, printed in the JAX script's line format
+    with the slopes' spread."""
+    s = median_slope(fn, inputs, reps)
     again = ("" if s["first_per_s"] is None else
-             f" [first slope {s['first_per_s'] * 1e6:.6f} us <= 0, measured again]")
+             f" [a slope {s['first_per_s'] * 1e6:.6f} us <= 0, measured again]")
     print(f"PROBE {name}: OK  {s['per_s'] * 1e6:.6f} us/construct "
-          f"(launch {s['launch_s'] * 1e3:.6f} ms @rep{reps[0]}){again}", flush=True)
+          f"(launch {s['launch_s'] * 1e3:.6f} ms @rep{reps[0]}; median of "
+          f"{len(s['slopes'])} slopes, spread {100 * s['spread']:.1f} %){again}", flush=True)
     return s
 
 
-def check(p: Probe, inputs) -> float:
+def check(p: Probe, inputs) -> Tuple[float, float]:
     """The kernel against its plain version at both repeat counts; raises
-    on a mismatch, returns the largest absolute error."""
-    worst = 0.0
+    on a mismatch, returns the largest absolute error and the largest
+    share of its gate."""
+    worst = share = 0.0
     for rep in p.reps:
         got = p.kernel(*inputs, rep)
         want = p.plain(*inputs, rep)
@@ -316,24 +387,25 @@ def check(p: Probe, inputs) -> float:
         tol = TOL_PER_REP * rep * float(want.abs().max())
         if not err <= tol:
             raise RuntimeError(f"probe {p.tag} {p.name} rep={rep}: max|Δ| {err} > {tol}")
-        worst = max(worst, err)
-    return worst
+        worst, share = max(worst, err), max(share, err / tol)
+    return worst, share
 
 
 def run(device="cuda") -> List[dict]:
     """Every probe on the card: checked against its plain version, then
-    the slopes of the kernel (printed as a PROBE line), of the plain
-    version and of its library calls in a Python loop (QUEUED_CALLS calls
-    each, so that the card, not the host, is timed)."""
+    the kernel's median slope (printed as a PROBE line), and the slopes of
+    the plain version and of its library calls in a Python loop
+    (QUEUED_CALLS calls each, so that the card, not the host, is
+    timed)."""
     dev = torch.device(device)
     if dev.type != "cuda":
         raise ValueError("the layout probe times kernels on a CUDA card")
     results = []
     for p in probes():
         inputs = make_inputs(p.shapes, dev)
-        err = check(p, inputs)
+        err, share = check(p, inputs)
         kern = probe(p.name, p.kernel, inputs, p.reps)
-        results.append(dict(probe=p, max_abs_err=err, kernel=kern,
+        results.append(dict(probe=p, max_abs_err=err, gate_share=share, kernel=kern,
                             plain=slope(p.plain, inputs, p.reps, QUEUED_CALLS),
                             library=slope(_library_loop(p.library), inputs, p.reps,
                                           QUEUED_CALLS)))
@@ -353,7 +425,11 @@ def main() -> int:
     if not torch.cuda.is_available():
         raise RuntimeError("the layout probe needs a CUDA card")
     full_f32_matmuls()
-    cuda_build.build_all()
+    log = cuda_build.build_all().get("layout_probe", "")
+    for line in log.splitlines():  # ptxas: each kernel's registers and spills
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(line.strip())
+    print(f"card: {torch.cuda.get_device_name(0)}")
     run("cuda")
     return 0
 

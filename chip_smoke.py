@@ -108,6 +108,7 @@ from aligator_tpu_torch.multibody.urdf import model_to_urdf
 from aligator_tpu_torch.problem import compute_derivatives, us_default_init, xs_default_init
 from aligator_tpu_torch.probes import k2_split as KS
 from aligator_tpu_torch.probes import layout_probe as LP
+from aligator_tpu_torch.probes import sass_loops as SL
 from aligator_tpu_torch.solvers import fddp as FD
 from aligator_tpu_torch.solvers.fddp import FDDPSettings, fddp_solve
 from aligator_tpu_torch.solvers.proxddp import ProxDDPSettings, solve
@@ -229,27 +230,7 @@ def bound_ms(nbytes, flops):
     return max(t_b, t_f), ("bytes" if t_b >= t_f else "operations")
 
 
-def ptx_label(name: str) -> str:
-    """A short name for a mangled kernel or device function of the port's
-    sources: its identifier (past the file-local namespaces) and integer
-    template arguments."""
-    if not name.startswith("_ZN"):
-        return name[:60]
-    pos = 3
-    while True:
-        m = re.match(r"\d+", name[pos:])
-        if not m:
-            return name[:60]
-        n = int(m.group(0))
-        ident = name[pos + len(m.group(0)):pos + len(m.group(0)) + n]
-        pos += len(m.group(0)) + n
-        if not ident.startswith(("_INTERNAL_", "_GLOBAL__N_")):
-            break
-    args = re.match(r"I((?:Lin?\d+E)+)E", name[pos:])
-    if args:
-        vals = [v.replace("n", "-") for v in re.findall(r"Li(n?\d+)E", args.group(1))]
-        ident += "<" + ", ".join(vals) + ">"
-    return ident
+ptx_label = SL.label
 
 
 # ptxas's lines on each kernel and device function of this run's build, by
@@ -759,30 +740,44 @@ def k2_small_check(dev) -> list:
 def probe_phase(dev):
     """P1, the layout probe (``scripts/probe_mosaic.py``; on no solver
     path): each body against its plain version at the probe's shapes and
-    both repeat counts, then timed per construct, with its plain version
-    and its library calls, by the slope over the repeat counts. Bound of
-    one construct: its operations over the float32 FMA rate (its operands
-    are on chip after the launch's first read); beside it the bytes bound
-    of one launch, every input read once and the output written once."""
+    both repeat counts, then timed per construct by the slope over the
+    repeat counts (the kernel's the median of 3 or more slopes, printed
+    with their spread), with its plain version and its library calls.
+    Bound of one construct (``Probe.bound_s``; its operands are on chip
+    after the launch's first read): the larger of its product's three TF32
+    passes at the tensor cores' rate and its float32 instructions at the
+    float32 pipe's issue rate; beside it the earlier bound (operations over
+    the float32 FMA rate) and the bytes bound of one launch, every input
+    read once and the output written once. Then the instructions in each
+    kernel's repeat loops, from its machine code (``probes.sass_loops``)."""
+    t0 = time.perf_counter()
     rows = []
     for r in LP.run(dev):
-        p = r["probe"]
-        ms = {k: r[k]["per_s"] * 1e3 for k in ("kernel", "plain", "library")}
-        bound = p.flops / F32_FLOP_PER_S * 1e3
+        p, k = r["probe"], r["kernel"]
+        ms = {n: r[n]["per_s"] * 1e3 for n in ("kernel", "plain", "library")}
+        bound, old_bound = p.bound_s * 1e3, p.old_bound_s * 1e3
         launch_bytes_ms = p.nbytes / HBM_BYTES_PER_S * 1e3
-        print(f"probe {p.tag} {p.name}: per construct kernel {ms['kernel'] * 1e3:.6f} us, "
+        print(f"probe {p.tag} {p.name}: per construct kernel {ms['kernel'] * 1e3:.6f} us "
+              f"(median of {len(k['slopes'])} slopes, spread {100 * k['spread']:.1f} %), "
               f"plain {ms['plain'] * 1e3:.6f} us, library {ms['library'] * 1e3:.6f} us, "
-              f"bound {bound * 1e3:.6f} us ({p.flops} operations); launch @rep"
-              f"{p.reps[0]} {r['kernel']['launch_s'] * 1e3:.6f} ms, bytes bound "
-              f"{launch_bytes_ms * 1e3:.6f} us ({p.nbytes} B); max abs err "
-              f"{r['max_abs_err']:.3e}")
+              f"bound {bound * 1e3:.6f} us ({p.instructions} float32 instructions, "
+              f"{LP.TF32_PASSES} x {p.tf32_flops} TF32 operations), old bound "
+              f"{old_bound * 1e3:.6f} us ({p.flops} operations); launch @rep{p.reps[0]} "
+              f"{k['launch_s'] * 1e3:.6f} ms, bytes bound {launch_bytes_ms * 1e3:.6f} us "
+              f"({p.nbytes} B); max abs err {r['max_abs_err']:.3e}, "
+              f"{100 * r['gate_share']:.2f} % of its gate")
         rows.append(dict(
             name=p.name, tag=p.tag, route="cuda",
             source="aligator_tpu_torch/csrc/layout_probe.cu", replaces=p.replaces,
             max_abs_err=r["max_abs_err"], ms=ms["kernel"], plain_ms=ms["plain"],
             bound_ms=bound, bound_by="operations", library_ms=ms["library"],
-            per="construct", launch_ms=r["kernel"]["launch_s"] * 1e3,
+            per="construct", spread=k["spread"], slopes=len(k["slopes"]),
+            old_bound_ms=old_bound, launch_ms=k["launch_s"] * 1e3,
             launch_bytes_bound_ms=launch_bytes_ms))
+    text = SL.cuobjdump(cuda_build._target("layout_probe"))
+    for line in SL.lines(SL.report(text)):
+        print(f"probe {line}")
+    print(f"probe phase: {time.perf_counter() - t0:.1f} s")
     return rows
 
 

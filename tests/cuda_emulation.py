@@ -32,10 +32,15 @@ blocks at once: ``cooperative_groups``' ``cluster_group`` gives
 ``num_blocks()`` and ``map_shared_rank`` (the same offset in another
 block's dynamic shared memory; a pointer outside it counts as a fault);
 ``cudaOccupancyMaxActiveClusters`` says 1. The CUDA runtime calls of the
-host side are stubs. The ``asm`` statements of cp.async and the ``extern
-__shared__`` array are replaced by text substitution (an empty ``asm
+host side are stubs. The ``asm`` statements of cp.async, an ``extern
+__shared__`` array of any type and the ``<<<...>>>`` launches, of
+templates or not, are replaced by text substitution (an empty ``asm
 volatile("" : "+r"(x))`` stays: g++ takes it as it is). Arithmetic is the
-CPU's: ``__fdividef`` divides exactly, ``fmaf`` is the C library's.
+CPU's: ``__fdividef`` divides exactly, ``fmaf`` is the C library's. The
+tensor cores' TF32 product (``mma_tf32_m16n8k8``, replaced by name) is a
+warp-wide exchange: each input rounded as ``cvt.rna.tf32.f32`` rounds it
+(``to_tf32``), the fragments laid out as the PTX ISA lays out m16n8k8
+``.tf32``, the exact products summed in float32.
 """
 
 from __future__ import annotations
@@ -139,6 +144,7 @@ struct Block {
   std::map<int, Bar> named;
   std::map<const void*, Mbar> mbars;
   std::vector<float> slots;
+  std::vector<float> mma;  // a warp's fragments, exchanged by mma_tf32_m16n8k8
   std::vector<float4> smem;
   Cluster* cluster = nullptr;
   int rank = 0;
@@ -184,7 +190,7 @@ inline thread_local Block* blk = nullptr;
 inline thread_local std::vector<Copy>* pending = nullptr;
 inline thread_local std::vector<size_t>* groups = nullptr;  // ends of committed groups
 }  // namespace emu
-inline thread_local uint3 threadIdx, blockIdx, blockDim;
+inline thread_local uint3 threadIdx, blockIdx, blockDim, gridDim;
 
 namespace emu {
 inline void yield() {
@@ -284,6 +290,8 @@ cudaError_t cudaMemcpyToSymbol(T& symbol, const void* src, size_t bytes) {
 }
 inline void __nanosleep(unsigned) {}
 inline float __int_as_float(int i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline float __uint_as_float(unsigned i) { float f; std::memcpy(&f, &i, 4); return f; }
+inline unsigned __float_as_uint(float f) { unsigned i; std::memcpy(&i, &f, 4); return i; }
 inline unsigned __umulhi(unsigned a, unsigned b) {
   return (unsigned)(((unsigned long long)a * b) >> 32);
 }
@@ -381,6 +389,44 @@ inline void named_sync(int id, int n) {
   if (b.expected == 0) b.expected = n;
   if (b.expected != n) ++emu::faults_;
   emu::arrive_and_wait(b);
+}
+// cvt.rna.tf32.f32: to 10 mantissa bits, to nearest, ties away from zero
+// (the magnitude's bits rounded up at half); infinities and NaN as they are.
+inline float to_tf32(float x) {
+  unsigned u = __float_as_uint(x);
+  if ((u & 0x7f800000u) != 0x7f800000u) u = (u + 0x1000u) & 0xffffe000u;
+  return __uint_as_float(u);
+}
+// mma.sync.aligned.m16n8k8.row.col.f32.tf32.tf32.f32, d += a·b: each lane
+// posts its fragments (each input rounded as cvt.rna.tf32 rounds it), the
+// warp meets, and each lane forms its four outputs from the PTX ISA's
+// fragment layout (g = lane / 4, q = lane % 4: a = A[g][q], A[g+8][q],
+// A[g][q+4], A[g+8][q+4]; b = B[q][g], B[q+4][g]; d = D[g][2q],
+// D[g][2q+1], D[g+8][2q], D[g+8][2q+1]): the eight exact products summed
+// in float32 in k's order, then added to d.
+inline void mma_tf32_m16n8k8(float (&d)[4], const float (&a)[4], const float (&b)[2]) {
+  emu::Block& blk = *emu::blk;
+  if (blk.mma.empty()) blk.mma.resize(blk.slots.size() * 6);
+  const int w = threadIdx.x / 32, lane = threadIdx.x & 31;
+  float* mine = &blk.mma[threadIdx.x * 6];
+  for (int e = 0; e < 4; ++e) mine[e] = to_tf32(a[e]);
+  for (int e = 0; e < 2; ++e) mine[4 + e] = to_tf32(b[e]);
+  emu::arrive_and_wait(blk.warp[w]);
+  const float* f = &blk.mma[32 * w * 6];
+  const int g = lane >> 2, q = lane & 3;
+  float out[4];
+  for (int e = 0; e < 4; ++e) {
+    const int r = g + 8 * (e >> 1), c = 2 * q + (e & 1);
+    float s = 0.f;
+    for (int k = 0; k < 8; ++k) {
+      const float av = f[((r % 8) * 4 + k % 4) * 6 + r / 8 + 2 * (k / 4)];
+      const float bv = f[(c * 4 + k % 4) * 6 + 4 + k / 4];
+      s += av * bv;
+    }
+    out[e] = d[e] + s;
+  }
+  emu::arrive_and_wait(blk.warp[w]);
+  for (int e = 0; e < 4; ++e) d[e] = out[e];
 }
 inline void async_copy_arrive(unsigned long long* bar) {
   emu::Mbar& m = emu::mbar(bar);
@@ -505,6 +551,7 @@ void launch_clusters(dim3 grid, int nt, size_t smem, int cs, F&& f) {
           fb.blk = blocks[r].get();
         }
       blockDim = {(unsigned)nt, 1, 1};
+      gridDim = {grid.x, grid.y, grid.z};
       run(fibers, fn, nt);
     }
 }
@@ -561,7 +608,8 @@ extern "C" void emu_set_seed(unsigned s) { emu::seed = s; }
 # replaces, by name (EMU_H defines each with the same signature).
 EMULATED_HELPERS = ("smem_addr", "async_commit", "async_wait", "mbar_init", "mbar_fence_init",
                     "mbar_arrive", "mbar_arrive_tx", "mbar_try_wait",
-                    "bulk_copy", "async_copy", "async_copy_arrive", "named_sync")
+                    "bulk_copy", "async_copy", "async_copy_arrive", "named_sync",
+                    "mma_tf32_m16n8k8")
 
 
 def _drop_helpers(src: str) -> str:
@@ -592,12 +640,12 @@ def translate(src: str) -> str:
                  "emu::commit();", src)
     src = re.sub(r'asm volatile\("cp\.async\.wait_all;\\n" ::: "memory"\);',
                  "emu::wait_all();", src)
-    src = src.replace("extern __shared__ float4 smem4[];",
-                      "float4* smem4 = emu::blk->smem.data();")
-    src = re.sub(r"(\w+<[^<>;]*>)\s*<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*([^>]+)>>>\((.*?)\);",
+    src = re.sub(r"extern __shared__ (\w+) (\w+)\[\];",
+                 r"\1* \2 = reinterpret_cast<\1*>(emu::blk->smem.data());", src)
+    src = re.sub(r"(\w+(?:<[^<>;]*>)?)\s*<<<([^,]+),\s*([^,]+),\s*([^,]+),\s*([^>]+)>>>\((.*?)\);",
                  lambda m: (f"emu::launch({m.group(2)}, {m.group(3)}, {m.group(4)}, [&]() "
                             f"{{ {m.group(1)}({m.group(6)}); }});"), src, flags=re.S)
-    if re.search(r'asm volatile\("[^"]', src) or "<<<" in src:
+    if re.search(r'\basm(?: volatile)?\("[^"]', src) or "<<<" in src:
         raise ValueError("the source uses a construct the emulation does not translate")
     return src
 

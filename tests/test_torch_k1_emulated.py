@@ -50,9 +50,10 @@ def lib(tmp_path_factory):
     return lib
 
 
-def _random_lq(B, N, nx, nu, nc, seed):
-    """Well-posed random constrained LQs (chip_smoke.random_lq_arrays's
-    shape), the terminal A, B, f NaN."""
+def _random_arrays(B, N, nx, nu, nc, seed):
+    """Well-posed random constrained LQs as numpy arrays
+    (chip_smoke.random_lq_arrays's draws from ``default_rng(seed)``), the
+    terminal A, B, f NaN."""
     rng = np.random.default_rng(seed)
     L = N + 1
 
@@ -75,10 +76,15 @@ def _random_lq(B, N, nx, nu, nc, seed):
     f = 0.1 * rng.standard_normal((B, L, nx))
     f[:, N] = np.nan
     z = lambda *s: np.zeros((B,) + s)
-    arrays = dict(Q=Q, S=S, R=R, q=rng.standard_normal((B, L, nx)), r=r, A=A, B=Bm, f=f, C=C,
-                  D=D, d=d, Gx=z(L, nx, 0), Gu=z(L, nu, 0), Gth=z(L, 0, 0), gamma=z(L, 0),
-                  G0=-np.tile(np.eye(nx), (B, 1, 1)), g0=rng.standard_normal((B, nx)))
-    return knots_of(lqr_from_numpy(arrays, device="cpu", dtype=torch.float32))
+    return dict(Q=Q, S=S, R=R, q=rng.standard_normal((B, L, nx)), r=r, A=A, B=Bm, f=f, C=C,
+                D=D, d=d, Gx=z(L, nx, 0), Gu=z(L, nu, 0), Gth=z(L, 0, 0), gamma=z(L, 0),
+                G0=-np.tile(np.eye(nx), (B, 1, 1)), g0=rng.standard_normal((B, nx)))
+
+
+def _random_lq(B, N, nx, nu, nc, seed, dtype=torch.float32):
+    """The knots of ``_random_arrays``'s problems."""
+    return knots_of(lqr_from_numpy(_random_arrays(B, N, nx, nu, nc, seed), device="cpu",
+                                   dtype=dtype))
 
 
 def _run(lib, knots, mu, refine_steps, cluster=0):
@@ -219,3 +225,68 @@ def test_c_entry_agrees_with_backward_plan(lib):
                     want = -1
                 got = lib.riccati_backward_variant(nx, nu, nc)
                 assert (got < 0) == (want < 0) and (want < 0 or got == want), (nx, nu, nc)
+
+
+def _finite(a):
+    """Per problem: every entry of every knot finite."""
+    a = np.asarray(a)
+    return np.isfinite(a).all(axis=tuple(range(1, a.ndim)))
+
+
+def _rel_err(a, ref):
+    """Per problem: max|a − ref| / max|ref| over the gains K and kff."""
+    def per_problem(x):
+        return x.reshape(x.shape[0], -1).max(axis=1)
+
+    return np.stack([per_problem(np.abs(np.asarray(a[n], np.float64) - ref[n]))
+                     / per_problem(np.abs(ref[n])) for n in ("K", "kff")]).max(axis=0)
+
+
+@pytest.mark.parametrize("nx, nu, seed", [(8, 32, 0), (20, 17, 1)])
+def test_emulated_small_class_at_mu_1e6_is_reference_behaviour(lib, nx, nu, seed):
+    """ROADMAP C16: the small classes at nu = nc = 17 (``small<64, 32>``
+    at nx = 20) and 32 (``small<128, 32>`` at nx = 8), µ = 1e-6, B = 4,
+    N = 6, float32. The JAX Pallas kernel (interpret mode) loses its gains
+    there as the port's kernel does (the explicit inverse's cancellation,
+    C5): both break down (NaN) on some problems where the plain recursion
+    stays finite. Where the port's kernel breaks down and the JAX kernel
+    does not, the JAX kernel's gains are no closer to the float64 solution
+    than 10× the plain recursion's error; where both are finite, the
+    port's gains are within 10× of the JAX kernel's error. A port fault
+    would be the JAX kernel finite and close to the plain recursion where
+    the port breaks down."""
+    import jax
+    import jax.numpy as jnp
+
+    from aligator_tpu import gar as JG
+    from aligator_tpu.gar import pallas_riccati as PR
+    from aligator_tpu.gar import riccati as JR
+
+    B, mu = 4, 1e-6
+    arrays = _random_arrays(B, 6, nx, nu, nu, seed)
+    probs = [JG.LQRProblem(**{f: jnp.asarray(a[b], jnp.float32) for f, a in arrays.items()})
+             for b in range(B)]
+    jknots = jax.tree.map(lambda *a: jnp.stack(a), *[JR.knots_of(p) for p in probs])
+    gj, _ = PR.backward_sweep_batched(jknots, jnp.full((B,), mu, jnp.float32))
+    knots = _random_lq(B, 6, nx, nu, nu, seed)
+    mus = torch.full((B,), mu)
+    port = _run(lib, knots, mus, 1)
+    plain, _ = FR.backward_sweep_batched_ref(knots, mus)
+    exact, _ = FR.backward_sweep_batched_ref(_random_lq(B, 6, nx, nu, nu, seed, torch.float64),
+                                             mus.double())
+    ref = {n: getattr(exact, n).numpy() for n in ("K", "kff")}
+    jax_gains = {n: np.asarray(getattr(gj, n)) for n in ("K", "kff")}
+    port_gains = {n: port[n].numpy() for n in ("K", "kff")}
+    plain_gains = {n: getattr(plain, n).numpy() for n in ("K", "kff")}
+    fin_j = _finite(jax_gains["K"]) & _finite(jax_gains["kff"])
+    fin_p = _finite(port_gains["K"]) & _finite(port_gains["kff"])
+    assert _finite(plain_gains["K"]).all() and _finite(plain_gains["kff"]).all()
+    assert not fin_p.all()
+    e_plain, e_jax, e_port = (_rel_err(g, ref) for g in (plain_gains, jax_gains, port_gains))
+    for b in range(B):
+        if fin_j[b] and not fin_p[b]:
+            assert e_jax[b] >= 10 * e_plain[b], (b, e_jax[b], e_plain[b])
+        if fin_j[b] and fin_p[b]:
+            assert e_port[b] <= 10 * e_jax[b], (b, e_port[b], e_jax[b])
+    if nu == 32:
+        assert not fin_j.any()  # the JAX kernel breaks down on every problem

@@ -21,6 +21,7 @@ import jax.numpy as jnp
 from jax.experimental import pallas as pl
 
 from aligator_tpu_torch.probes import layout_probe as LP
+from aligator_tpu_torch.probes import sass_loops as SL
 
 torch.set_num_threads(1)
 
@@ -107,3 +108,58 @@ def test_main_raises_without_a_card():
         pytest.skip("a CUDA device is present")
     with pytest.raises(RuntimeError, match="CUDA"):
         LP.main()
+
+
+# tag -> (float32 instructions of one construct, its product's 2·m·k·n,
+# the new and the old bound in µs to four decimals); slab = R·C·TB
+_SLAB = LP.R * LP.C * LP.TB
+BOUNDS = {
+    "P1a": (16 * 24 * 24 + 16 * 24 * 57, 2 * 16 * 24 * 24 * 57, 0.0064, 0.0161),
+    "P1b": (16 * 56 * 56 + 16 * 56 * 78, 2 * 16 * 56 * 56 * 78, 0.0474, 0.1186),
+    "P1c": (1536 * 56 + 1536 * 78, 2 * 1536 * 56 * 78, 0.0813, 0.2033),
+    "P1d": (2 * _SLAB, 0, 0.0105, 0.0052),
+    "P1e": (LP.R * LP.TB + _SLAB, 0, 0.0053, 0.0053),
+    "P1f": (2 * _SLAB, 0, 0.0105, 0.0052),
+    "P1g": (LP.R * LP.R * LP.TB + LP.R * _SLAB + _SLAB, 0, 0.1331, 0.1292),
+}
+
+
+@pytest.mark.parametrize("tag", sorted(BOUNDS))
+def test_probe_bound_counts_instructions_and_tensor_core_passes(tag):
+    """A product's bound is its three TF32 passes at 495 TFLOP/s or its
+    adds (the offset, one per element of a; the accumulation, one per
+    output) at the float32 pipe's issue rate, 132·128·1.98e9 a second,
+    whichever is longer; the other bodies' their adds, multiplies and
+    FMAs, one instruction each. The old bound, operations over 67 TFLOP/s,
+    stays beside it."""
+    p = {p.tag: p for p in LP.probes()}[tag]
+    instructions, tf32_flops, new_us, old_us = BOUNDS[tag]
+    assert (p.instructions, p.tf32_flops) == (instructions, tf32_flops)
+    want = max(3 * tf32_flops / 495e12, instructions / (132 * 128 * 1.98e9))
+    assert p.bound_s == pytest.approx(want, rel=1e-12)
+    assert round(p.bound_s * 1e6, 4) == new_us
+    assert round(p.old_bound_s * 1e6, 4) == old_us
+
+
+SASS = """
+\t\tFunction : _ZN12_GLOBAL__N_19mm_kernelILi7EEEvPKfS2_Pfiiii
+        /*0000*/                   LDC R1, c[0x0][0x28] ;   /* 0x00000a00ff017b82 */
+        /*0010*/                   FADD R2, R3, R4 ;        /* 0x0 */
+        /*0020*/                   HMMA.1688.F32.TF32 R4, R8, R12, R4 ;   /* 0x0 */
+        /*0030*/               @P0 FFMA R5, R6, R7, R5 ;    /* 0x0 */
+        /*0040*/                   SHFL.BFLY PT, R9, R8, 0x8, 0x1f ;   /* 0x0 */
+        /*0050*/              @!P1 BRA 0x20 ;               /* 0x0 */
+        /*0060*/                   FMUL R2, R2, R2 ;        /* 0x0 */
+        /*0070*/                   EXIT ;                   /* 0x0 */
+        /*0080*/                   BRA 0x80;                /* 0x0 */
+"""
+
+
+def test_sass_loops_counts_each_loop_by_opcode():
+    """A branch backwards closes a loop from its target to itself; the
+    kernel's closing branch to itself is no loop."""
+    (row,) = SL.report(SASS)
+    assert row["function"] == "mm_kernel<7>" and row["instructions"] == 9
+    (loop,) = row["loops"]
+    assert (loop["first"], loop["last"], loop["instructions"]) == (0x20, 0x50, 4)
+    assert [loop[op] for op in SL.OPS] == [1, 1, 0, 0, 1]
