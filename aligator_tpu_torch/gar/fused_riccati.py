@@ -47,6 +47,7 @@ from aligator_tpu_torch.gar.riccati import (
 )
 from aligator_tpu_torch.linalg.schur import cholesky
 from aligator_tpu_torch.utils import cuda_build
+from aligator_tpu_torch.utils import profiling as prof
 from aligator_tpu_torch.utils.profiling import named_scope
 
 # A block may use at most this much dynamic shared memory on an H100.
@@ -323,7 +324,8 @@ def backward_sweep_batched(knots: Knot, mueq: torch.Tensor, refine_steps: int = 
     ``csrc/riccati_backward.cu``. ``cluster`` sets the blocks per problem
     at the compiled widths (1, 2, 4 or 8; 0, the default, takes
     ``backward_plan``'s, which the C entry computes alike);
-    ``last_cluster`` records the size of the latest launch.
+    ``last_cluster`` records the size of the latest launch and the counter
+    ``gar.k1.cluster<C>`` the launches at each size.
     """
     if cluster not in (0,) + BACKWARD_CLUSTERS:
         raise ValueError(f"cluster={cluster}: the backward kernel takes 1, 2, 4 or 8 blocks per "
@@ -381,6 +383,8 @@ def backward_sweep_batched(knots: Knot, mueq: torch.Tensor, refine_steps: int = 
                            f"cudaError {err}")
     backward_sweep_batched.launches += 1
     backward_sweep_batched.last_cluster = cs
+    prof.count(f"gar.k1.cluster{cs}")
+    prof.annotate(cluster=cs)
     return _pack(outs["kff"], outs["zff"], outs["yff"], outs["K"], outs["Z"],
                  outs["Acl"], outs["Vxx"], outs["vx"])
 
@@ -546,8 +550,8 @@ def forward_sweep_batched(gains: Gains, vms: CostToGo, x0: torch.Tensor,
     zero-padded to nx). Returns (xs, us, vs, lbds), each (B, N+1, ·).
     CPU tensors go through the plain version; CUDA tensors launch
     ``csrc/riccati_forward.cu``: ``forward_plan``'s kernel, or ``plan``.
-    ``launches`` counts sweeps, ``by_kernel`` the sweeps of each kernel by
-    name, and ``last_plan`` is the latest sweep's.
+    ``launches`` counts sweeps and ``last_plan`` is the latest sweep's; the
+    counter ``gar.k2.<plan>`` counts the sweeps of each kernel.
     """
     if x0.device.type == "cpu":
         return forward_sweep_batched_ref(gains, vms, x0, lbd0)
@@ -561,14 +565,13 @@ def forward_sweep_batched(gains: Gains, vms: CostToGo, x0: torch.Tensor,
         parts["sweep"]()
     forward_sweep_batched.launches += 1
     forward_sweep_batched.last_plan = plan
-    by = forward_sweep_batched.by_kernel
-    by[str(plan)] = by.get(str(plan), 0) + 1
+    prof.count(f"gar.k2.{plan}")
+    prof.annotate(kernel=str(plan))
     return outs
 
 
 forward_sweep_batched.launches = 0
 forward_sweep_batched.last_plan = None
-forward_sweep_batched.by_kernel = {}
 
 
 # ---------------------------------------------------------------------------

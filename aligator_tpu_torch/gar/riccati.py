@@ -216,6 +216,7 @@ def forward_sweep(gains: Gains, vms: CostToGo, x0, lbd0, theta):
     return st(xs), st(us), st(vs), st(lbds)
 
 
+@named_scope("gar.initial_solve")
 def initial_solve(problem: LQRProblem, vms: CostToGo, mudyn, refine_steps: int,
                   gains: Gains) -> RiccatiFactors:
     """The initial-stage KKT [[Vxx0, G0ᵀ],[G0, -mudyn·I]]·[x0; λ0] =

@@ -12,6 +12,7 @@ import torch
 from aligator_tpu_torch.problem import TrajOptProblem, us_default_init, xs_default_init
 from aligator_tpu_torch.solvers import proxddp
 from aligator_tpu_torch.solvers.proxddp import ProxDDPSettings
+from aligator_tpu_torch.utils.profiling import named_scope
 from aligator_tpu_torch.utils.tree import tree_map
 
 
@@ -22,6 +23,7 @@ def _set_last(a: torch.Tensor, new: torch.Tensor, axis: int) -> torch.Tensor:
     return out
 
 
+@named_scope("mpc.cycle")
 def cycle_problem(problem: TrajOptProblem, new_stage=None,
                   new_constraints=None) -> TrajOptProblem:
     """Shift the horizon one stage left; the vacated last slot takes
@@ -50,6 +52,7 @@ class MPCState(NamedTuple):
     lams: torch.Tensor  # (B, N+1, ndx)
 
 
+@named_scope("mpc.shift")
 def shift_warm_start(state: MPCState) -> MPCState:
     """Rotate the previous solution one stage left, duplicating the tail."""
     return MPCState(*(
@@ -57,6 +60,7 @@ def shift_warm_start(state: MPCState) -> MPCState:
     ))
 
 
+@named_scope("mpc.step")
 def mpc_step(problem: TrajOptProblem, settings: ProxDDPSettings,
              x_measured: torch.Tensor, state: MPCState, cycle: bool = True):
     """One receding-horizon step for a batch of controllers: (optionally)

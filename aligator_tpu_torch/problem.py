@@ -23,7 +23,7 @@ from aligator_tpu_torch.dynamics.base import values_only
 from aligator_tpu_torch.functions.basic import StateErrorResidual
 from aligator_tpu_torch.manifolds.base import Manifold
 from aligator_tpu_torch.utils.device import resolve_device
-from aligator_tpu_torch.utils.profiling import named_scope
+from aligator_tpu_torch.utils.profiling import named_scope, span
 from aligator_tpu_torch.utils.tree import (
     static_field,
     tree_leaves,
@@ -239,9 +239,12 @@ def compute_derivatives(problem: TrajOptProblem, xs: torch.Tensor,
 
     def stage(objs, x, u, x_next):
         dyn, cost, cstrs = objs
-        Lx, Lu, Lxx, Lxu, Luu = cost.derivatives(space, x, u)
-        A, B = dyn.defect_jacobians(space, x, u, x_next)
-        Cx, Cu = cstr_jacs(cstrs, x, u)
+        with span("problem.derivatives.cost"):
+            Lx, Lu, Lxx, Lxu, Luu = cost.derivatives(space, x, u)
+        with span("problem.derivatives.dynamics"):
+            A, B = dyn.defect_jacobians(space, x, u, x_next)
+        with span("problem.derivatives.constraints"):
+            Cx, Cu = cstr_jacs(cstrs, x, u)
         return Lx, Lu, Lxx, Lxu, Luu, A, B, Cx, Cu
 
     Lx, Lu, Lxx, Lxu, Luu, A, B, Cx, Cu = _vmap_batch(

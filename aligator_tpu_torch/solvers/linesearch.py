@@ -19,6 +19,7 @@ from typing import Callable, NamedTuple, Optional, Tuple
 
 import torch
 
+from aligator_tpu_torch.utils import profiling as prof
 from aligator_tpu_torch.utils.tree import tree_map, tree_where
 
 
@@ -106,7 +107,7 @@ def armijo_run(
              cnt=torch.zeros_like(phi0, dtype=torch.int32))
     while True:
         active = (~c["done"]) & (c["cnt"] < opts.max_num_steps)
-        if not bool(active.any()):
+        if not prof.host_flag(active.any(), "armijo"):
             break
         alpha_n = _interp_next_alpha(
             opts, c["alpha"], c["phi"], c["prev_alpha"], c["prev_phi"],
@@ -160,10 +161,12 @@ def _backtrack_rows(phi_eval_rows, one, phi1, payload1, ok1, phi_ref, dphi0, opt
     one trial, so there are no more calls than that loop makes. Each
     element ends at its first accepted trial (or its last), with φ and
     payload of the last finite trial up to it (else the full step's)."""
-    steps = _bisection_steps(opts, phi1).to(phi1.device)
+    with prof.host_sync("ls_steps"):  # a pageable copy to the device
+        steps = _bisection_steps(opts, phi1).to(phi1.device)
     K, R = steps.shape[0], max(phi1.shape[0], ROWS_PER_CALL)
     alpha, phi, payload = one.clone(), phi1, payload1
-    pending = torch.nonzero(~ok1).flatten()
+    with prof.host_sync("ls_rows"):
+        pending = torch.nonzero(~ok1).flatten()
     k0 = 0
     while pending.numel() and k0 < K:
         n = pending.shape[0]
@@ -179,8 +182,9 @@ def _backtrack_rows(phi_eval_rows, one, phi1, payload1, ok1, phi_ref, dphi0, opt
         upto = stop.clamp(max=w - 1)
         last_finite = torch.where(finite & (k <= upto[:, None]), k, -1).max(dim=1).values
         has = last_finite >= 0
-        take = pending[has]
-        src = (torch.arange(n, device=phi1.device) * w + last_finite)[has]
+        with prof.host_sync("ls_rows", 2):  # two boolean masks
+            take = pending[has]
+            src = (torch.arange(n, device=phi1.device) * w + last_finite)[has]
 
         def put(full, part):
             out = full.clone()
@@ -189,7 +193,8 @@ def _backtrack_rows(phi_eval_rows, one, phi1, payload1, ok1, phi_ref, dphi0, opt
 
         phi, payload = put(phi, phi_r), tree_map(put, payload, payload_r)
         alpha[pending] = trial[upto]
-        pending = pending[stop == w]
+        with prof.host_sync("ls_rows"):
+            pending = pending[stop == w]
         k0 += w
     return alpha, phi, payload
 
@@ -262,7 +267,7 @@ def filter_run(
              cnt=torch.zeros_like(fs.count))
     while True:
         active = (~c["done"]) & (c["cnt"] < opts.max_num_steps)
-        if not bool(active.any()):
+        if not prof.host_flag(active.any(), "filter"):
             break
         alpha_n = torch.clamp(0.5 * c["alpha"], min=opts.alpha_min)
         phi_n, h_n, payload_n = pair_eval(alpha_n)

@@ -11,7 +11,8 @@ regularizations and tolerances are per-element (B,) tensors. Elements then
 match ``jax.vmap(proxddp_solve)`` one for one — iterates, ``conv`` and
 iteration counts. Work whose result the select would discard is skipped
 (a Newton step when no active element needs one). Each ``.any()`` is a
-host sync.
+host sync, read through ``utils.profiling.host_flag``, which counts it at
+its site.
 
 Supported: every setting of the JAX solver on one device. The BCL outer
 loop, the inner Newton loop, the regularization ladder; Armijo,
@@ -69,8 +70,9 @@ from aligator_tpu_torch.solvers.linesearch import (
     filter_run,
 )
 from aligator_tpu_torch.utils import logger
+from aligator_tpu_torch.utils import profiling as prof
 from aligator_tpu_torch.utils.device import full_f32_matmuls
-from aligator_tpu_torch.utils.profiling import named_scope
+from aligator_tpu_torch.utils.profiling import named_scope, span
 from aligator_tpu_torch.utils.tree import tree_map, tree_where
 
 
@@ -435,7 +437,7 @@ def _solve_lq_once(s: ProxDDPSettings, lq: LQRProblem, mu):
     what a nonlinear rollout reads: those of the serial recursion, assoc,
     stagedense, or K1's for "pallas"; parallel and the dense oracle form
     none."""
-    with torch.profiler.record_function("proxddp.riccati"):
+    with span("proxddp.riccati"):
         if _is_parallel(s):
             return parallel_solve(lq, mu, max(s.lq_num_legs, 2), mesh=s.lq_mesh,
                                   axis_name=s.lq_axis_name,
@@ -463,7 +465,7 @@ def _solve_lq(s: ProxDDPSettings, lq: LQRProblem, mu):
         dt, hi = lq.dtype, torch.float64
         lq_hi = tree_map(lambda a: a.to(hi), lq)
         for _ in range(s.lq_refine_full):
-            with torch.profiler.record_function("proxddp.riccati.full_refine"):
+            with span("proxddp.riccati.full_refine"):
                 res = lqr_kkt_residuals(lq_hi, *(a.to(hi) for a in sol),
                                         mueq=mu.to(hi))
                 res_lq = lq.replace(q=res.q.to(dt), r=res.r.to(dt), d=res.d.to(dt),
@@ -477,10 +479,15 @@ def _solve_lq(s: ProxDDPSettings, lq: LQRProblem, mu):
 
 
 def _as_batch(v, B: int, like: torch.Tensor) -> torch.Tensor:
-    t = torch.as_tensor(v, dtype=like.dtype, device=like.device)
+    if isinstance(v, torch.Tensor) and v.device == like.device:
+        t = v.to(like.dtype)
+    else:
+        with prof.host_sync("as_batch"):  # a pageable copy to the device
+            t = torch.as_tensor(v, dtype=like.dtype, device=like.device)
     return t.expand(B).clone() if t.dim() == 0 else t
 
 
+@named_scope("proxddp.solve")
 def solve(
     problem: TrajOptProblem,
     settings: ProxDDPSettings = ProxDDPSettings(),
@@ -586,7 +593,7 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         return d
 
     def eval_point(pt: Point, prev_vs, prev_vs_term, mu, prob=problem):
-        with torch.profiler.record_function("proxddp.evaluate"):
+        with span("proxddp.evaluate"):
             data = evaluate(pt.xs, pt.us, prob)
             mult = _compute_multipliers(prob, s, data, pt, prev_vs, prev_vs_term, mu)
             return data, mult, _merit(s, data, mult, mu)
@@ -695,18 +702,19 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
                                                st.mu[idx], prob)
             return phi_t, (pt_t, data_t, mult_t)
 
-        if s.sa_strategy == "filter":
-            def pair_eval(alpha):
-                phi_t, payload = ls_eval(alpha)
-                return phi_t, payload[2].prim_infeas, payload
+        with span("proxddp.linesearch"):
+            if s.sa_strategy == "filter":
+                def pair_eval(alpha):
+                    phi_t, payload = ls_eval(alpha)
+                    return phi_t, payload[2].prim_infeas, payload
 
-            alpha_f, phi_f, (pt_f, data_f, mult_f), filt_f = filter_run(
-                pair_eval, st.filt, ls_opts, beta=s.filter_beta)
-        else:
-            phi_ref = ls_avg if s.sa_strategy == "nonmonotone" else phi0
-            alpha_f, phi_f, (pt_f, data_f, mult_f) = armijo_run(
-                ls_eval, phi0, dphi0, ls_opts, phi_ref=phi_ref, phi_eval_rows=ls_eval_rows)
-            filt_f = st.filt
+                alpha_f, phi_f, (pt_f, data_f, mult_f), filt_f = filter_run(
+                    pair_eval, st.filt, ls_opts, beta=s.filter_beta)
+            else:
+                phi_ref = ls_avg if s.sa_strategy == "nonmonotone" else phi0
+                alpha_f, phi_f, (pt_f, data_f, mult_f) = armijo_run(
+                    ls_eval, phi0, dphi0, ls_opts, phi_ref=phi_ref, phi_eval_rows=ls_eval_rows)
+                filt_f = st.filt
 
         # accept unless a rejected direction or non-finite merit: then
         # revert and escalate
@@ -755,7 +763,7 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
     def inner_iteration(st: _State, data, mult, active):
         """One Newton iteration; the step is skipped (selected away) where
         the subproblem criterion already passes."""
-        with torch.profiler.record_function("proxddp.derivatives"):
+        with span("proxddp.derivatives"):
             derivs = compute_derivatives(st.pt.xs, st.pt.us)
         if s.debug:
             _debug_check("problem evaluation at accepted iterate (dynamics rollout / cost)",
@@ -778,7 +786,7 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
                        host(mult.prim_infeas), host(dual_infeas))
         no_step = (st, data, mult, torch.ones_like(exit_ok))
         stepping = active & ~exit_ok
-        if not bool(stepping.any()):
+        if not prof.host_flag(stepping.any(), "newton_step"):
             return no_step
         stepped = newton_step(st, data, mult, derivs, Lxs_c, Lus_c, stepping)
         return tree_where(exit_ok, no_step, stepped)
@@ -792,7 +800,7 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         while True:
             st, data, mult, exited = carry
             active = (~exited) & (~st.failed) & (st.iters < s.max_iters)
-            if not bool(active.any()):
+            if not prof.host_flag(active.any(), "inner_loop"):
                 break
             carry = tree_where(active, inner_iteration(st, data, mult, active), carry)
         return st.replace(failed=st.failed | (~exited & (st.iters >= s.max_iters))), mult
@@ -803,7 +811,7 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         tols = tbody((st.prim_tol, st.inner_tol))
         while True:
             go = loop_mask & (st.inner_crit < tols[1])
-            if not bool(go.any()):
+            if not prof.host_flag(go.any(), "al_tolerance"):
                 break
             tols = tree_where(go, tbody(tols), tols)
         conv = (st.dual_infeas <= target_dual) & (st.prim_infeas <= target_tol)
@@ -829,7 +837,8 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
         st = st.replace(ls_avg=torch.zeros_like(st.ls_avg),
                         ls_w=torch.zeros_like(st.ls_w))
         success = st.prim_infeas <= st.prim_tol
-        st = tree_where(success, on_success(st, mult, active & success), on_failure(st))
+        with span("proxddp.al_update"):
+            st = tree_where(success, on_success(st, mult, active & success), on_failure(st))
         return st.replace(
             inner_tol=torch.maximum(st.inner_tol, 0.01 * target_dual),
             prim_tol=torch.maximum(st.prim_tol, target_tol),
@@ -839,7 +848,7 @@ def _solve_batched(problem, s, xs_init, us_init, vs_init, lams_init, mu_init, to
     while True:
         active = ((st.al_iter < s.max_al_iters) & (st.iters < s.max_iters)
                   & (~st.conv) & (~st.failed))
-        if not bool(active.any()):
+        if not prof.host_flag(active.any(), "outer_loop"):
             break
         st = tree_where(active, outer_body(st, active), st)
 

@@ -112,7 +112,7 @@ from aligator_tpu_torch.probes import sass_loops as SL
 from aligator_tpu_torch.solvers import fddp as FD
 from aligator_tpu_torch.solvers.fddp import FDDPSettings, fddp_solve
 from aligator_tpu_torch.solvers.proxddp import ProxDDPSettings, solve
-from aligator_tpu_torch.utils import cuda_build
+from aligator_tpu_torch.utils import cuda_build, profiling
 from aligator_tpu_torch.utils.device import full_f32_matmuls
 from aligator_tpu_torch.utils.tree import tree_map
 
@@ -800,7 +800,13 @@ def counted() -> dict:
 def reset_counts():
     for w in counted().values():
         w.launches = 0
-    FR.forward_sweep_batched.by_kernel.clear()  # K2's sweeps by kernel name
+    profiling.reset()  # the port's counters: K2's sweeps by kernel among them
+
+
+def k2_kernels() -> dict:
+    """K2's sweeps by kernel name, from the port's counters."""
+    return {k[len("gar.k2."):]: v for k, v in profiling.counters().items()
+            if k.startswith("gar.k2.")}
 
 
 def read_counts() -> dict:
@@ -954,9 +960,10 @@ def rel_err(out, ref) -> float:
     return max(errs)
 
 
-def count_syncs(fn):
+def count_syncs(fn, sites=None):
     """(result of fn, the host syncs torch flags while fn runs, their
-    Python call sites)."""
+    Python call sites); ``sites``, a dict, receives the count at each
+    site by its full path ("<file>:<line>")."""
     import warnings
 
     torch.cuda.synchronize()
@@ -969,6 +976,9 @@ def count_syncs(fn):
             torch.cuda.set_sync_debug_mode(0)
     torch.cuda.synchronize()
     syncs = [w for w in caught if "synchroniz" in str(w.message)]
+    for w in syncs if sites is not None else ():
+        key = f"{w.filename}:{w.lineno}"
+        sites[key] = sites.get(key, 0) + 1
     return out, len(syncs), sorted({f"{w.filename.split('/')[-1]}:{w.lineno}" for w in syncs})
 
 
@@ -1722,7 +1732,7 @@ def kernels_held_to_plain(log: list, backward_error: bool = False):
         return out
 
     held_b.launches, held_f.launches = orig_b.launches, orig_f.launches
-    held_f.by_kernel, held_f.last_plan = orig_f.by_kernel, orig_f.last_plan
+    held_f.last_plan = orig_f.last_plan
     FR.backward_sweep_batched, FR.forward_sweep_batched = held_b, held_f
     try:
         yield log
@@ -2056,7 +2066,7 @@ def quadrotor_solves(dev, part: str) -> dict:
         res = solve(prob16, fused)
         torch.cuda.synchronize()
     out = dict(first_s=time.perf_counter() - t0, counts=read_counts(), fused=host(res),
-               k2_kernels=dict(FR.forward_sweep_batched.by_kernel), held=held,
+               k2_kernels=k2_kernels(), held=held,
                N=problem.nsteps, nx=problem.space.nx, ndx=problem.ndx,
                nu=problem.nu, nc=problem.nc)
     # every scenario's end point and least clearances (mug, pillar)
@@ -2269,7 +2279,7 @@ def jump_solves(dev, part: str) -> dict:
     with kernels_held_to_plain([], backward_error=True) as held:
         res, secs = timed(prob16, fused)
     out = dict(held_s=secs, plain_s=sum(e[4] for e in held), counts=read_counts(),
-               k2_kernels=dict(FR.forward_sweep_batched.by_kernel), fused=host(res), held=held,
+               k2_kernels=k2_kernels(), fused=host(res), held=held,
                N=problem.nsteps, nx=problem.space.nx, ndx=problem.ndx, nu=problem.nu,
                nc=problem.nc)
     capped = ProxDDPSettings(lq_solver="pallas",

@@ -1,0 +1,3 @@
+"""initial_solve_ms.mpc (ms, program span): host ms a batched MPC step inside gar.initial_solve, the initial-stage KKT solve after each backward sweep."""
+
+from portbench.spans import initial_solve_ms as read  # noqa: F401
