@@ -20,6 +20,7 @@ from typing import NamedTuple, Optional
 
 import torch
 
+from aligator_tpu_torch.utils import profiling as prof
 from aligator_tpu_torch.utils.device import scalar_like
 
 
@@ -47,8 +48,20 @@ def cholesky(A: torch.Tensor) -> torch.Tensor:
     return torch.where(bad, torch.full_like(L, float("nan")).tril(), L)
 
 
+def cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """(L Lᵀ)⁻¹ b by two triangular solves, L y = b then Lᵀ x = y (b (..., n,
+    p)): LAPACK's potrs. On the card a batch runs as cuBLAS batched trsm,
+    which allocates through the caching allocator and reads nothing back to
+    the host (``torch.cholesky_solve`` there is MAGMA's batched potrs, which
+    calls ``cudaMalloc``/``cudaFree`` and waits for the stream). A NaN factor
+    gives NaN."""
+    y = torch.linalg.solve_triangular(L, b, upper=False)
+    return torch.linalg.solve_triangular(L.mT, y, upper=True)
+
+
 def _chol_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    return torch.cholesky_solve(b, L)
+    prof.count("linalg.chol_solve")
+    return cho_solve(L, b)
 
 
 def kkt_factor(R: torch.Tensor, D: torch.Tensor, mu) -> SaddleFactor:

@@ -18,7 +18,7 @@ from typing import NamedTuple
 
 import torch
 
-from aligator_tpu_torch.linalg.schur import cholesky
+from aligator_tpu_torch.linalg.schur import cho_solve, cholesky
 
 
 class SPDFactor(NamedTuple):
@@ -37,12 +37,6 @@ def spd_factor(M: torch.Tensor) -> SPDFactor:
     return SPDFactor(chol=cholesky(Ms), scale=s, M=M)
 
 
-def _cho_solve(L: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
-    """(L Lᵀ)⁻¹ b by two triangular solves (b (..., n, k))."""
-    y = torch.linalg.solve_triangular(L, b, upper=False)
-    return torch.linalg.solve_triangular(L.mT, y, upper=True)
-
-
 def spd_solve_factored(fac: SPDFactor, b: torch.Tensor, refine_steps: int = 1):
     """Solve M x = b given an :func:`spd_factor`; ``b`` is (n,) or (n, k)."""
     vec = b.dim() == 1
@@ -50,7 +44,7 @@ def spd_solve_factored(fac: SPDFactor, b: torch.Tensor, refine_steps: int = 1):
     s = fac.scale[:, None]
 
     def base_solve(rhs):
-        return s * _cho_solve(fac.chol, s * rhs)
+        return s * cho_solve(fac.chol, s * rhs)
 
     x = base_solve(B)
     for _ in range(refine_steps):

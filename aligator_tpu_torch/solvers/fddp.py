@@ -28,8 +28,7 @@ from torch.func import vmap
 
 from aligator_tpu_torch.dynamics.base import values_only
 from aligator_tpu_torch.gar.riccati import mv
-from aligator_tpu_torch.linalg.schur import cholesky
-from aligator_tpu_torch.linalg.spd import _cho_solve
+from aligator_tpu_torch.linalg.schur import cho_solve, cholesky
 from aligator_tpu_torch.problem import (
     TrajOptProblem,
     _vmap_batch,
@@ -132,8 +131,8 @@ def _backward(problem: TrajOptProblem, derivs, fs, preg):
         Quu = derivs.Luu[:, t] + BtV @ Bm + p * eye_u
         Quu = 0.5 * (Quu + Quu.mT)
         L = cholesky(Quu)  # NaN where Quu is not SPD, as in JAX
-        kff = -_cho_solve(L, Qu.unsqueeze(-1)).squeeze(-1)
-        K = -_cho_solve(L, Qxu.mT)
+        kff = -cho_solve(L, Qu.unsqueeze(-1)).squeeze(-1)
+        K = -cho_solve(L, Qxu.mT)
         Quuk = mv(Quu, kff)
         Vx = Qx + mv(K.mT, Qu)
         Vxx = Qxx + Qxu @ K

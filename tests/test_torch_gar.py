@@ -11,6 +11,7 @@ import torch
 
 import jax
 import jax.numpy as jnp
+import jax.scipy.linalg
 
 from aligator_tpu import gar as JG
 from aligator_tpu.gar import riccati as JR
@@ -20,6 +21,7 @@ from aligator_tpu_torch.convert import lqr_from_numpy
 from aligator_tpu_torch.gar import riccati as TR
 from aligator_tpu_torch.gar.utils import lqr_kkt_error, lqr_kkt_residuals
 from aligator_tpu_torch.linalg import schur as TS
+from aligator_tpu_torch.utils import profiling as prof
 
 torch.set_num_threads(1)
 
@@ -74,6 +76,41 @@ def test_schur_flags_indefinite_R_with_nan():
     # JAX's factor: NaN on and below the diagonal, zero above
     ref = JS.kkt_factor(jnp.asarray(R[0].numpy()), jnp.zeros((0, 2), jnp.float64), 1e-3)
     np.testing.assert_array_equal(fac.chol_R[0].numpy(), np.asarray(ref.chol_R))
+
+
+@pytest.mark.parametrize("lead", [(), (4,), (2, 3)], ids=str)
+@pytest.mark.parametrize("n", [1, 22, 56])
+@pytest.mark.parametrize("p", ["1", "n"])
+def test_chol_solve_matches_cholesky_solve_and_jax(lead, n, p):
+    """The solve on a Cholesky factor (two triangular solves) against
+    ``torch.cholesky_solve`` and JAX's ``cho_solve``, to 1e-12 relative,
+    counted once a call under ``linalg.chol_solve``."""
+    rng = np.random.default_rng(n)
+    W = rng.standard_normal(lead + (n, n))
+    A = W @ np.swapaxes(W, -1, -2) / n + np.eye(n)
+    b = rng.standard_normal(lead + (n, 1 if p == "1" else n))
+    L = torch.linalg.cholesky(torch.as_tensor(A))
+    before = prof.counters().get("linalg.chol_solve", 0)
+    x = TS._chol_solve(L, torch.as_tensor(b))
+    assert prof.counters()["linalg.chol_solve"] == before + 1
+    scale = np.abs(x.numpy()).max()
+    _close(x, torch.cholesky_solve(torch.as_tensor(b), L), 1e-12 * scale, "torch")
+    _close(x, jax.scipy.linalg.cho_solve((jnp.asarray(L.numpy()), True), jnp.asarray(b)),
+           1e-12 * scale, "jax")
+
+
+def test_chol_solve_on_a_nan_factor_gives_nan():
+    L = TS.cholesky(torch.tensor([[[1.0, 2.0], [2.0, 1.0]]], dtype=torch.float64))
+    assert torch.isnan(TS._chol_solve(L, torch.ones((1, 2, 3), dtype=torch.float64))).all()
+
+
+def test_initial_solve_counts_five_chol_solves():
+    """R⁻¹G0ᵀ in the factor, then R and S in the solve and its refinement."""
+    lq = _to_torch(_lq(3))
+    gains, vms = TR.backward_sweep(TR.knots_of(lq), 1e-3)
+    before = prof.counters().get("linalg.chol_solve", 0)
+    TR.initial_solve(lq, vms, 0.0, 1, gains)
+    assert prof.counters()["linalg.chol_solve"] == before + 5
 
 
 @pytest.mark.parametrize("nc", [0, 2])
